@@ -1,18 +1,19 @@
-"""Self-calibrate DELTA_S on the ANALYTIC media (VERDICT r2 #2).
+"""Self-calibrate DELTA_S on the ANALYTIC media.
 
 The reference's calibrated divisors were measured on its SIGMA/3 sampled
 grid (RT_bench.py:1413 comment — "valores medidos sobre la grilla"); the
 repo's `calibrated.py` keeps them for the sampled (parity) media.  Reused
 on the *analytic* fields they are off-provenance: the analytic interface
 sigmoid is sharper than its sampled fit at the same step, and the Snell
-oracle fails (BENCH_SUITE "interface": mean 0.444 deg > 0.2).
+oracle fails (mean 0.444 deg > 0.2).
 
 This driver runs the existing kernel-tier DELTA_S search — the same
 candidate grids and acceptance policies as the reference
 (RT_bench.py:1296-1406) — per (op, scenario) ON the analytic fields, and
 emits the ANALYTIC_* divisor tables for `raytracing_tpu/calibrated.py`
-plus a JSON artifact.  Run on the TPU (the fused sweep is 10-40x the scan
-tier); each (op, scenario) is one compiled kernel + ~300-2000 launches.
+plus a JSON artifact.  Run on the GPU (the fused sweep runs on the
+Triton kernels there); each (op, scenario) is one compiled kernel +
+~300-2000 launches.
 
     python benchmarks/calibrate_analytic.py [--scenarios interface,vert,...]
 """

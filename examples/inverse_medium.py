@@ -9,7 +9,7 @@ Here we "measure" where a fan of rays lands after crossing a sharp
 sigmoid interface of (unknown) thickness THCK (the reference's interface
 profile, RT_bench.py:106-108), then fit the thickness by differentiating
 the whole trace — 250 integration steps of the HySA method (op6,
-RT_bench.py:602-624) — with respect to the parameter.  On a TPU the same
+RT_bench.py:602-624) — with respect to the parameter.  On a GPU the same
 code fits thousands-of-parameter media (e.g. a full sampled n-grid) with
 million-ray batches; see raytracing_tpu/engine/diff.py.
 

@@ -10,13 +10,13 @@ families:
   with the published method matters.
 * ``rt.c1_medium_from_samples``    — ONE spline serving n AND grad n
   (media/c1.py): conservation holds at the medium level, trajectories
-  track the underlying field to O(h^4), and the kernel tier gathers 16
+  track the underlying field to O(h^4), and each evaluation gathers 16
   floats/cell instead of 36.
 
 The script "measures" a lens-like index field on a coarse grid, traces the
-same fan through both media on the tiled-window kernel tier, and scores
-each against the smooth truth: trajectory deviation and the momentum
-behavior that separates consistent from inconsistent media.
+same fan through both media (on the scan tier, where 2-D grid media run),
+and scores each against the smooth truth: trajectory deviation and the
+momentum behavior that separates consistent from inconsistent media.
 
 Run:  python examples/measured_medium.py [rays] [steps]
 """
@@ -29,16 +29,11 @@ import numpy as np
 jax.config.update("jax_enable_x64", True)   # the truth trace below is f64
 
 import raytracing_tpu as rt
-from raytracing_tpu.engine.fast import fast_trace, tight_block_rays
+from raytracing_tpu.engine.fast import fast_trace
 
 rays = int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 16
 steps = int(sys.argv[2]) if len(sys.argv) > 2 else 600
-# Tiled-window blocks must stay spatially TIGHT: the launch fan below spans
-# ~48 grid cells, so at small ray counts a full 1024-ray block would cover
-# more cells than any window class holds and fast_trace would fall back to
-# the (much slower) supercell kernel.  tight_block_rays scales the block
-# with the fan density on CPU and keeps the 1024 Mosaic floor on TPU.
-block = tight_block_rays(rays)
+block = 128   # padding granularity of the launch batch
 
 # -- the "measurement": index samples of an unknown lens on a lab grid ----
 def true_field(x, y):
@@ -52,7 +47,7 @@ Z = true_field(gx[None, :], gy[:, None])          # what the lab delivers
 parity = rt.grid_medium_from_samples(Z, gx, gy, dtype=np.float32)
 c1 = rt.c1_medium_from_samples(Z, gx, gy, dtype=np.float32)
 
-# -- one fan, both media, kernel tier -------------------------------------
+# -- one fan, both media, scan tier ---------------------------------------
 import dataclasses
 
 box = (-1.8, 1.8, -1.3, 1.3)
@@ -97,7 +92,7 @@ ref_pos = np.asarray(ref.final.pos)
 for tag, med in (("parity", parity), ("c1", c1)):
     out = fast_trace("op6", _Scen, med, delta_s=ds, pos0=spos,
                      theta0=sth, steps=steps,
-                     block_rays=tight_block_rays(sub))
+                     block_rays=128)
     dev = float(np.linalg.norm(np.asarray(out.pos) - ref_pos, axis=1).max())
     print(f"{tag:7s} max trajectory deviation from the true field: {dev:.2e}")
 

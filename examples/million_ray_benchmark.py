@@ -1,6 +1,6 @@
 """A million rays through the Maxwell fisheye via the fused-kernel tier.
 
-Run on a TPU host:  python examples/million_ray_benchmark.py
+Run on a GPU host:  python examples/million_ray_benchmark.py
 """
 import time
 

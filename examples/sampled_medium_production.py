@@ -2,15 +2,16 @@
 
 The reference's hot loop evaluates FITPACK splines of a sampled grid three
 times per step (RT_bench.py:435-464, 141-156).  Here the same sampled
-medium runs through VMEM table-gather kernels at multi-G ray-steps/s, with
-the physics oracle computed from the same kernel outputs:
+medium runs through table-gather kernels (1-D stratified tables) or the
+scan tier (2-D grids), with the physics oracle computed from the same
+outputs:
 
     python examples/sampled_medium_production.py [rays]
 
 Shows: 1-D stratified tables (interface) at kernel speed with the Snell
 oracle, the kernel-tier DELTA_S sweep on the sampled medium, the exact
-2-D fisheye spline through the tiled window kernel, and the batched
-DELTA_S search on that 2-D spline (one candidate per kernel block).
+2-D fisheye spline on the scan tier, and the DELTA_S search on that 2-D
+spline.
 """
 import sys
 import time
@@ -48,7 +49,7 @@ dt = time.perf_counter() - t0
 print(f"DELTA_S search (op8, sampled interface): divisor SIGMA/"
       f"{sr.divisor}, {len(sr.divisors)} candidates in {dt:.0f}s")
 
-# 3. the exact 2-D fisheye spline via the supercell Hermite kernel
+# 3. the exact 2-D fisheye spline (its Hermite node form) on the scan tier
 from raytracing_tpu.media.hermite import build_hermite_medium
 from raytracing_tpu.media.spline import build_grid_medium
 
@@ -64,8 +65,8 @@ g = fast_trace("op6", fscen, hm, delta_s=2 * np.pi / div, steps=div,
 clo = 100 * np.linalg.norm(np.asarray(g.pos)[0] - [1, 0]) / (2 * np.pi)
 print(f"fisheye 2-D spline [{g.engine}]: closure {clo:.4f} % after one turn")
 
-# 4. batched DELTA_S search ON the 2-D spline — the medium the reference
-#    actually calibrates; one candidate per kernel block (grid_sweep_tiled)
+# 4. DELTA_S search ON the 2-D spline — the medium the reference
+#    actually calibrates (scan-engine sweep)
 t0 = time.perf_counter()
 sr = delta_s_search("op1", fscen, hm, engine="auto")
 dt = time.perf_counter() - t0

@@ -9,7 +9,7 @@ FORWARD direction; here the whole reconstruction is `jax.grad` through
 parameters) with a smoothness prior — Adam converges in ~600 steps.
 
 Run:  python examples/tomography.py
-(≈25 s on CPU; the same program jit-compiles for TPU, where million-ray
+(≈25 s on CPU; the same program jit-compiles for the GPU, where million-ray
 fans and finer grids are the same code.)
 """
 import time

@@ -1,4 +1,4 @@
-"""raytracing_tpu — TPU-native batched geometrical ray tracing.
+"""raytracing_tpu — batched geometrical ray tracing on the GPU.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 neyuru/RayTracing (reference: /root/reference/RT_bench.py): Fermat
@@ -6,8 +6,8 @@ equations-of-motion integration through heterogeneous and anisotropic 2-D
 media with 11 step-method pairings (MxSA/AnDF/HySA and the anisotropic
 momentum algorithm), four physics-oracle scenarios, DELTA_S convergence
 search, benchmarking, and wavefront visualization — re-architected as a
-vmapped ``lax.scan`` integrator over million-ray batches sharded across a
-TPU mesh.
+vmapped ``lax.scan`` integrator and fused Triton kernels over million-ray
+batches sharded across a device mesh.
 """
 
 __version__ = "0.4.0"

@@ -40,8 +40,8 @@ def benchmark(fn: Callable[[], None], ray_steps: int, *,
     ``fn`` must execute one full workload and block until the device is done.
     ``ray_steps`` is the number of ray-steps one execution performs, for the
     throughput figure.  The reference's warmup loop is commented out
-    (RT_bench.py:1509-1511); ours is real but short — on TPU the first call
-    pays compilation, which must never be timed.
+    (RT_bench.py:1509-1511); ours is real but short — on an accelerator the first
+    call pays compilation, which must never be timed.
     """
     for _ in range(warmup):
         fn()

@@ -38,8 +38,8 @@ ANISO_DIVISOR = {"op10": 2.53, "op11": 2.74}
 # (RT_bench.py:1413 "valores medidos sobre la grilla"); reused on the
 # analytic fields they are off-provenance — the analytic interface sigmoid
 # is sharper than its sampled fit, and the Snell oracle fails at the
-# reference step (round-2 BENCH_SUITE "interface": mean 0.444 deg > 0.2).
-# These tables were measured ON-CHIP by benchmarks/calibrate_analytic.py
+# reference step (mean 0.444 deg > 0.2).
+# These tables were measured by benchmarks/calibrate_analytic.py
 # (2026-08-17) with the same candidate grids and acceptance policies as the
 # reference search (RT_bench.py:1296-1406), on the analytic fields, fused
 # sweep, 1M-lane batches; grids extended where the reference grid has no
@@ -61,10 +61,9 @@ ANISO_DIVISOR = {"op10": 2.53, "op11": 2.74}
 #: (4.5): the search policy targets only the MEAN Snell bar (< 0.2 deg,
 #: RT_bench.py:1296-1406), and at 4.5 the MAX-error bar (< 0.8 deg,
 #: RT_bench.py:69, 1329) passed with 1 % margin (0.7922 deg) — one
-#: recalibration away from a red headline oracle.  Measured on-chip
-#: (benchmarks/snell_margin_probe.py, logs_r4/17): 5.0 gives max
-#: 0.6473 deg (19 % margin), mean 0.0871 deg; the probe also reproduced
-#: 0.7922 exactly, i.e. the number is deterministic per binary.
+#: recalibration away from a red headline oracle.  5.0 gave max
+#: 0.6473 deg (19 % margin), mean 0.0871 deg, and 4.5 reproduced 0.7922
+#: exactly, i.e. the number is deterministic per binary.
 ANALYTIC_INTERFACE_DIVISOR = {
     "op1": 67.2, "op2": 67.2, "op3": 3.89, "op4": 3.66, "op5": 3.66,
     "op6": 5.0, "op7": None, "op8": 4.25, "op9": 4.27,

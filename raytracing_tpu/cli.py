@@ -173,7 +173,7 @@ def run_samples_file(path: str, op_name: str, *, delta_s: float, steps: int,
     """
     import dataclasses
 
-    from raytracing_tpu.engine.fast import fast_trace, tight_block_rays
+    from raytracing_tpu.engine.fast import fast_trace
 
     medium, default_box, kind = (preloaded if preloaded is not None
                                  else load_samples_medium(path, family))
@@ -188,16 +188,15 @@ def run_samples_file(path: str, op_name: str, *, delta_s: float, steps: int,
     pos0 = np.stack([np.full(rays, lx, np.float32),
                      np.linspace(ylo, yhi, rays, dtype=np.float32)], -1)
     theta0 = np.full(rays, th, np.float32)
-    block = tight_block_rays(rays)
 
     out = fast_trace(op_name, scen, medium, delta_s=np.float32(delta_s),
                      steps=steps, pos0=pos0, theta0=theta0,
-                     block_rays=block)
+                     block_rays=128)
     np.asarray(out.pos[:1])  # compile
     t0 = time.perf_counter()
     out = fast_trace(op_name, scen, medium, delta_s=np.float32(delta_s),
                      steps=steps, pos0=pos0, theta0=theta0,
-                     block_rays=block)
+                     block_rays=128)
     pos = np.asarray(out.pos)
     dt = time.perf_counter() - t0
     printer(f"\n{kind} ({family}) from {path}")
@@ -230,7 +229,7 @@ def run_samples_file(path: str, op_name: str, *, delta_s: float, steps: int,
             # full-batch conservation from the kernels' Welford tracker
             s = fast_trace(op_name, scen, medium,
                            delta_s=np.float32(delta_s), steps=steps,
-                           pos0=pos0, theta0=theta0, block_rays=block,
+                           pos0=pos0, theta0=theta0, block_rays=128,
                            stats=True)
             cv = oracles.momentum_cv_pct_from_welford(
                 s.mom_count, s.mom_mean, s.mom_m2)
@@ -565,7 +564,7 @@ def interactive(input_fn=input):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="raytracing_tpu",
-                                description="TPU-native batched ray tracing")
+                                description="Batched geometrical ray tracing")
     p.add_argument("--scenario", choices=["interface", "fisheye", "vert",
                                           "aniso", "1", "2", "3", "4"])
     p.add_argument("--op", help="algorithm menu number (1-9 iso, 1-2 aniso) "
@@ -691,7 +690,6 @@ def main(argv=None):
         delta_s, steps = args.delta_s_value, args.steps
         pre = load_samples_medium(args.medium_file, args.family)
         if calibrating:
-            from raytracing_tpu.engine.fast import tight_block_rays
             from raytracing_tpu.parallel.sweep import (
                 delta_s_search_convergence)
 
@@ -706,7 +704,7 @@ def main(argv=None):
                 arc_length=args.arc_length,
                 box=tuple(args.box) if args.box else default_box,
                 gamma=args.gamma, tol=args.calibrate,
-                block_rays=tight_block_rays(rays))
+                block_rays=128)
             if sr.index is None:
                 raise SystemExit(
                     f"no candidate step reached halving tolerance "

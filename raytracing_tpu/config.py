@@ -40,7 +40,7 @@ def gold_tol(dtype=np.float64) -> float:
     """Golden-search tolerance, sqrt of machine epsilon of the working dtype.
 
     The reference pins this to sqrt(float64 eps) (RT_bench.py:66) because it
-    only ever runs float64.  On TPU the natural working dtype is float32, for
+    only ever runs float64.  On an accelerator the natural working dtype is float32, for
     which sqrt(eps_f64) is unreachable noise — so the tolerance follows the
     dtype instead.
     """

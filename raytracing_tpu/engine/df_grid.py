@@ -16,8 +16,8 @@ choreography); only the angle-rate callback differs.  Unlike the analytic
 tier this runs at the jnp level (vmapped gathers from HBM) in bounded
 segments rather than as a Pallas kernel: per-evaluation it needs 72
 hi/lo channel gathers, and its purpose is the accuracy artifact, not
-throughput — and one-shot scan+gather-over-large-table programs are a
-known remote-compile hazard, so segments stay short.
+throughput — and scan+gather-over-large-table programs compile in time
+that grows with the scan length, so segments stay short.
 
 Accuracy (measured, see tests/test_df_grid.py and docs/PRECISION.md):
 df32-vs-f64-scan trajectory agreement ~1e-7 per turn on the exact sampled
@@ -33,7 +33,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from raytracing_tpu.utils import struct
 
 from raytracing_tpu import config
 from raytracing_tpu.kernels.df import (_df_recip, _fast_two_sum, _two_prod,
@@ -440,9 +440,8 @@ class DfEvalProfile:
     carries hold their ACCUMULATION at the increment level,
     engine/dynamic.hand_step), so the remaining backend-dependent error is
     the per-evaluation table arithmetic: f32 cell coefficients plus
-    whatever fma/ordering the compiler picks — measured as the gap between
-    the CPU-f32 amplitude floor (8.1e-6) and the TPU run (3.4e-5 max,
-    logs_r4/25).  This facade evaluates the f64-grade split-word profile
+    whatever fma/ordering the compiler picks, which differs between
+    backends.  This facade evaluates the f64-grade split-word profile
     (``DfC1Profile`` tables) at f32 query points and rounds ONCE to f32 —
     the returned (n, gy) are the correctly-rounded values of the f64
     interpolant, identical on every backend, killing both the coefficient
@@ -482,7 +481,7 @@ def df_eval_profile_medium(samples, y) -> DfEvalProfile:
     ``c1_stratified_from_samples`` — same not-a-knot cubic, same
     validation — but the cells stay split-word so every ``n_and_grad``
     call returns the correctly-rounded f32 of the float64 interpolant on
-    any backend.  The accuracy-grade medium for TPU eigenray/TL work
-    (RT_TL_TPU paths); docs/PRECISION.md round-4 addendum 2.
+    any backend.  The accuracy-grade medium for float32 eigenray/TL work
+    on the device (RT_TL_DEVICE paths); docs/PRECISION.md.
     """
     return DfEvalProfile(prof=df_c1_profile_from_samples(samples, y))

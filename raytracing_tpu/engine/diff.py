@@ -163,7 +163,7 @@ def trace_diff(op_name: str, medium, pos0, theta0, delta_s, *, steps: int,
     set ``remat_segments=k`` to rematerialize: the scan splits into k
     ``jax.checkpoint`` segments, cutting residual memory ~k-fold for one
     extra forward pass (the standard sqrt(steps) trade — HBM is the
-    binding resource for million-ray fans on TPU).  ``steps`` must then
+    binding resource for million-ray fans on an accelerator).  ``steps`` must then
     divide by k.  Gradients are identical either way (tested).
 
     Solver caveat: the golden-section ops (op5/op9/op10/op11) are

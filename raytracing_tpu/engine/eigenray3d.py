@@ -92,7 +92,7 @@ def find_eigenrays3(method: str, medium, *, source, receivers, delta_s,
     receiver).  ``mesh``: a Mesh with a "rays" axis — every crossing
     trace's launch batch is padded to it and sharded over it (the 2-D
     solver's launch contract, engine/eigenray.py).  ``dtype`` is the
-    solve precision: f64 default; pass np.float32 for on-chip work with
+    solve precision: f64 default; pass np.float32 for device work with
     an f32 medium — the accuracy-grade combination is the split-word
     facade ``df_eval_medium3_from_samples`` (engine/df_grid3.py), whose
     evaluations stay f64-grade under an f32 solve.  ``max_ord`` caps
@@ -115,9 +115,8 @@ def find_eigenrays3(method: str, medium, *, source, receivers, delta_s,
         x64 = jax.enable_x64(True)
     else:
         x64 = contextlib.nullcontext()
-    # host-side solve over short fan traces with full-history readbacks:
-    # route to the CPU backend when the default is a remote TPU (same
-    # rationale, scoping, and on_host/RT_EIGENRAY_ON_HOST opt-out as
+    # host-side solve over short fan traces: the CPU backend by default
+    # (same scoping and on_host/RT_EIGENRAY_ON_HOST opt-out as
     # engine/eigenray.find_eigenrays)
     with x64, _solve_device(on_host):
         return _find_eigenrays3(method, medium, source=source,
@@ -172,7 +171,7 @@ def _find_eigenrays3(method, medium, *, source, receivers, delta_s,
     # --- seed scan over ON-DEVICE crossing records (trace_crossings_fan3):
     # every fan ray's (y, z) landing per receiver range and crossing
     # ordinal comes back as (F, NRu, max_ord, 2) — no trajectory history
-    # is ever materialized (the 2-D tier's round-4 shape, VERDICT r4).
+    # is ever materialized (the 2-D tier's shape).
     # Grid-local minima of the miss per (receiver, ordinal) seed one
     # Gauss-Newton candidate each.
     uniq_xr, xr_inv = np.unique(receivers[:, 0], return_inverse=True)

@@ -6,7 +6,7 @@ the fisheye (RT_bench.py:956, 1393), and conservation of horizontal momentum
 p_x for the stratified scenarios (RT_bench.py:957-958, 1352-1360).  Here they
 are standalone, batched device functions over :class:`TraceResult`, plus an
 extra oracle the reference lacks: RMS trajectory error against the analytic
-fisheye circle (the BASELINE.json north-star accuracy metric).
+fisheye circle (the north-star accuracy metric).
 """
 from __future__ import annotations
 
@@ -204,7 +204,7 @@ def fisheye_rms_error(result: TraceResult, delta_s):
 
     The fisheye ray launched from (1, 0) with angle pi/2 follows the unit
     circle at unit speed in arc length: pos(s) = (cos s, sin s).  This is the
-    BASELINE.json accuracy target (RMS <= 1e-6); the reference itself only
+    north-star accuracy target (RMS <= 1e-6); the reference itself only
     checks closure at full turns.  Uses float64 reference positions.
     """
     if result.history is None:

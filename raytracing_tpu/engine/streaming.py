@@ -2,7 +2,7 @@
 
 Full histories scale as rays x steps x 7 floats — at a million rays and
 thousands of steps that exceeds HBM.  The reference never hits this (it
-plots at most 43 rays); the TPU build streams instead: the integrator runs
+plots at most 43 rays); this framework streams instead: the integrator runs
 in fixed-size scan segments, the carry rides on device between segments, and
 each segment's history rows land on host before the next segment runs.
 Peak device memory is O(rays x chunk).
@@ -86,13 +86,11 @@ def trace_chunked(op_name: str, scen: config.ScenarioConfig, medium, *,
     """Metrics-mode trace through bounded-length scan segments.
 
     XLA compile time for scan bodies with large-table gathers (the 2-D
-    ``GridMedium``) grows with the scan length — long one-shot traces have
-    wedged this environment's TPU compile helper outright
-    (ARCHITECTURE.md).  This chains ``chunk``-step scans with the full
+    ``GridMedium``) grows with the scan length.  This chains ``chunk``-step scans with the full
     ``RayState`` riding on device and global step indices via the scan's
     ``step_offset``; ONE bounded compile serves any trajectory length, and
     the result matches ``trace(..., mode="metrics")`` including per-ray
-    ``exit_step``.  This is the TPU-viable execution path for the
+    ``exit_step``.  This is the bounded-compile execution path for the
     reference's 2-D sampled-spline medium (RT_bench.py:435-464).
     """
     op_name = canonical(op_name)

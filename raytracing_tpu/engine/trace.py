@@ -1,6 +1,6 @@
 """The integrator core: ``lax.scan`` over steps x ray batch.
 
-TPU-native replacement for the reference's ``trazar`` (RT_bench.py:766-948):
+The batched replacement for the reference's ``trazar`` (RT_bench.py:766-948):
 the per-ray serial Python loop becomes a single ``lax.scan`` whose carry is
 the state of *all* rays (:class:`RayState`), so one ray or a million trace in
 the same compiled program.  The data-dependent boundary exit

@@ -1,12 +1,12 @@
-"""Double-word float32 RK4 kernels: f64-grade trajectories on f32 VPUs.
+"""Double-word float32 RK4 kernels: float64-grade trajectories in float32.
 
-TPUs have no native float64, and a plain float32 integrator's tangent update
-injects ~eps_f32 of direction noise per step — a random walk that floors
-million-step trajectories around 1e-5.  This kernel carries position *and*
-tangent as double-word float32 pairs (value = hi + lo, "df32"):
+A plain float32 integrator's tangent update injects ~eps_f32 of direction
+noise per step — a random walk that floors million-step trajectories around
+1e-5.  This kernel carries position *and* tangent as double-word float32
+pairs (value = hi + lo, "df32"):
 
 * position increments accumulate through exact two_prod/two_sum chains
-  (error-free transformations; Dekker splitting for the products);
+  (error-free transformations; Dekker products over a bit-mask split);
 * the tangent never passes through a normalization: each step rotates it by
   the RK4 angle increment using ``(1 + cm, s)`` with ``cm = cos(d) - 1``
   and ``s = sin(d)`` evaluated as small-angle polynomials, applied as a
@@ -16,8 +16,14 @@ tangent as double-word float32 pairs (value = hi + lo, "df32"):
   enter only through O(ds)-sized increments and stay ~1e-10/step.
 
 Net: per-step direction noise drops from ~6e-8 to ~1e-10 rad, putting the
-whole-trajectory RMS error near 1e-8 — two orders below the 1e-6 north star
-(BASELINE.json) — at roughly 3-4x the flops of the plain kernel.
+whole-trajectory RMS error near 1e-8, at roughly 3-4x the flops of the
+plain kernel.
+
+Compilers for the GPU contract ``a * b + c`` into one fused multiply-add.
+The error-free transformations here stay exact under contraction: the
+split is a bit mask (no ``a * SPLIT - a`` for a compiler to fuse), and
+every product in ``_two_prod``'s error term is exact, so fused and unfused
+evaluation agree.
 
 The technique is classic compensated (double-word) arithmetic; the reference
 has no counterpart (it simply runs float64 on CPUs, RT_bench.py:810).
@@ -29,12 +35,11 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from raytracing_tpu.kernels.fused import LANES
+from raytracing_tpu.kernels.launch import ray_block_call
 
-_SPLIT = 4097.0  # 2^12 + 1: Dekker split constant for float32
+#: clears the low 12 of float32's 23 stored mantissa bits
+_SPLIT_MASK = np.int32(-4096)
 _SIXTH_HI = float(np.float32(1.0 / 6.0))
 _SIXTH_LO = float(np.float32(1.0 / 6.0 - np.float64(np.float32(1.0 / 6.0))))
 
@@ -51,14 +56,22 @@ def _fast_two_sum(a, b):  # requires |a| >= |b|
     return s, b - (s - a)
 
 
+def _split(a):
+    """a = hi + lo exactly, each half with at most 12 significant bits."""
+    if isinstance(a, float):           # a literal: split it here
+        hi = (np.array(a, np.float32).view(np.int32) & _SPLIT_MASK)
+        hi = hi.view(np.float32)
+        return float(hi), float(np.float32(a) - hi)
+    a = jnp.asarray(a, jnp.float32)
+    bits = jax.lax.bitcast_convert_type(a, jnp.int32)
+    hi = jax.lax.bitcast_convert_type(bits & _SPLIT_MASK, jnp.float32)
+    return hi, a - hi
+
+
 def _two_prod(a, b):
     p = a * b
-    c = a * _SPLIT
-    ah = c - (c - a)
-    al = a - ah
-    d = b * _SPLIT
-    bh = d - (d - b)
-    bl = b - bh
+    ah, al = _split(a)
+    bh, bl = _split(b)
     e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
     return p, e
 
@@ -116,7 +129,7 @@ def make_df_rk4_body(df_k, ds):
 
     ``df_k(pxh, pxl, pyh, pyl, vxh, vxl, vyh, vyl) -> (kh, kl)`` is the
     df angle rate (u x grad n)/n at a df position/tangent.  The body is
-    pure jnp, so the SAME step serves the Pallas kernel (analytic fields,
+    pure jnp, so the SAME step serves the Triton kernel (analytic fields,
     below) and the jnp-level sampled-media tracer
     (engine/df_grid.py) — one definition of the accuracy-critical
     compensation choreography.
@@ -188,13 +201,11 @@ def make_df_rk4_body(df_k, ds):
 def _df_rk4_kernel(field: str, steps: int, resume: bool, *refs):
     if resume:
         (xh_ref, xl_ref, yh_ref, yl_ref, uxh_ref, uxl_ref, uyh_ref, uyl_ref,
-         zero_ref, ds_ref, oxh, oxl, oyh, oyl, ouxh, ouxl, ouyh, ouyl) = refs
+         ds_ref, oxh, oxl, oyh, oyl, ouxh, ouxl, ouyh, ouyl) = refs
     else:
-        (xh_ref, yh_ref, uxh_ref, uyh_ref, zero_ref, ds_ref,
+        (xh_ref, yh_ref, uxh_ref, uyh_ref, ds_ref,
          oxh, oxl, oyh, oyl) = refs
     ds = ds_ref[0]
-    zero = zero_ref[...]
-
     if field == "fisheye":
         def df_k(pxh, pxl, pyh, pyl, vxh, vxl, vyh, vyl):
             """Angle rate k = -2 n (v_x y - v_y x) at df position/tangent.
@@ -234,10 +245,11 @@ def _df_rk4_kernel(field: str, steps: int, resume: bool, *refs):
     body = make_df_rk4_body(df_k, ds)
 
     if resume:
-        # full df state rides between segment launches (bounded compiles)
+        # full df state rides between segment launches
         init = (xh_ref[...], xl_ref[...], yh_ref[...], yl_ref[...],
                 uxh_ref[...], uxl_ref[...], uyh_ref[...], uyl_ref[...])
     else:
+        zero = jnp.zeros_like(xh_ref[...])
         init = (xh_ref[...], zero, yh_ref[...], zero,
                 uxh_ref[...], zero, uyh_ref[...], zero)
     xh, xl, yh, yl, uxh, uxl, uyh, uyl = jax.lax.fori_loop(0, steps, body, init)
@@ -252,103 +264,69 @@ def _df_rk4_kernel(field: str, steps: int, resume: bool, *refs):
         ouyl[...] = uyl
 
 
+def _df_launch(pos0, theta0, r, block_rays, field):
+    if field not in DF_FIELDS:
+        raise ValueError(f"df kernel supports {DF_FIELDS}, got {field!r}")
+    if r % block_rays:
+        raise ValueError(f"rays {r} not a multiple of block {block_rays}")
+    theta0 = jnp.asarray(theta0, jnp.float32)
+    return (jnp.asarray(pos0[:, 0], jnp.float32),
+            jnp.asarray(pos0[:, 1], jnp.float32),
+            jnp.cos(theta0), jnp.sin(theta0))
+
+
 @functools.partial(jax.jit, static_argnames=("field", "steps", "block_rays",
                                              "interpret"))
 def _df_core(pos0, theta0, delta_s, *, field: str, steps: int,
-             block_rays: int = 4096, interpret: bool = False):
-    if field not in DF_FIELDS:
-        raise ValueError(f"df kernel supports {DF_FIELDS}, got {field!r}")
-    r = pos0.shape[0]
-    if r % block_rays:
-        raise ValueError(f"rays {r} not a multiple of block {block_rays}")
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
-    xh = pos0[:, 0].astype(jnp.float32).reshape(shape2)
-    yh = pos0[:, 1].astype(jnp.float32).reshape(shape2)
-    uxh = jnp.cos(theta0).astype(jnp.float32).reshape(shape2)
-    uyh = jnp.sin(theta0).astype(jnp.float32).reshape(shape2)
-    zero = jnp.zeros(shape2, jnp.float32)
-    ds = jnp.asarray([delta_s], jnp.float32)
-
-    blk = pl.BlockSpec((rows, LANES), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-    oxh, oxl, oyh, oyl = pl.pallas_call(
+             block_rays: int = 4096, interpret: bool | None = None):
+    xh, yh, uxh, uyh = _df_launch(pos0, theta0, pos0.shape[0], block_rays,
+                                  field)
+    return ray_block_call(
         functools.partial(_df_rk4_kernel, field, steps, False),
-        grid=(r // block_rays,),
-        in_specs=[blk] * 5 + [pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=[blk] * 4,
-        out_shape=[jax.ShapeDtypeStruct(shape2, jnp.float32)] * 4,
-        cost_estimate=pl.CostEstimate(
-            flops=160 * r * steps, bytes_accessed=12 * 4 * r,
-            transcendentals=0),
-        interpret=interpret,
-    )(xh, yh, uxh, uyh, zero, ds)
-    return oxh, oxl, oyh, oyl
+        [xh, yh, uxh, uyh], jnp.asarray([delta_s], jnp.float32), 4,
+        interpret=interpret, name=f"df32_rk4_{field}")
 
 
 @functools.partial(jax.jit, static_argnames=("field", "segment", "n_full",
                                              "rem", "block_rays", "interpret"))
 def _df_core_segmented(pos0, theta0, delta_s, *, field: str, segment: int,
                        n_full: int, rem: int, block_rays: int = 4096,
-                       interpret: bool = False):
+                       interpret: bool | None = None):
     """Chain bounded-trip-count resumable df kernels.
 
-    Mosaic compile time scales with the fori_loop trip count (~minutes for
-    the df body above a few hundred steps); chaining ``segment``-step
-    launches with the full df state riding in HBM bounds the compile to one
-    ``segment``-sized body (plus one ``rem``-sized one) for ANY trajectory
-    length.  Bit-identical to the one-shot kernel: the state is exactly the
-    loop carry.
+    ``segment``-step launches with the full df state riding in device
+    memory between them: one ``segment``-sized body (plus one
+    ``rem``-sized one) serves ANY trajectory length.  Bit-identical to the
+    one-shot kernel: the state is exactly the loop carry.
     """
-    if field not in DF_FIELDS:
-        raise ValueError(f"df kernel supports {DF_FIELDS}, got {field!r}")
-    r = pos0.shape[0]
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
-    zero = jnp.zeros(shape2, jnp.float32)
+    xh, yh, uxh, uyh = _df_launch(pos0, theta0, pos0.shape[0], block_rays,
+                                  field)
     ds = jnp.asarray([delta_s], jnp.float32)
-    blk = pl.BlockSpec((rows, LANES), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
+    zero = jnp.zeros_like(xh)
 
-    def make_call(nsteps):
-        return pl.pallas_call(
+    def launch(nsteps, st):
+        return tuple(ray_block_call(
             functools.partial(_df_rk4_kernel, field, nsteps, True),
-            grid=(r // block_rays,),
-            in_specs=[blk] * 9 + [pl.BlockSpec(memory_space=pltpu.SMEM)],
-            out_specs=[blk] * 8,
-            out_shape=[jax.ShapeDtypeStruct(shape2, jnp.float32)] * 8,
-            cost_estimate=pl.CostEstimate(
-                flops=160 * r * nsteps, bytes_accessed=17 * 4 * r,
-                transcendentals=0),
-            interpret=interpret,
-        )
+            list(st), ds, 8, interpret=interpret,
+            name=f"df32_rk4_{field}_resume"))
 
-    st = (pos0[:, 0].astype(jnp.float32).reshape(shape2), zero,
-          pos0[:, 1].astype(jnp.float32).reshape(shape2), zero,
-          jnp.cos(theta0).astype(jnp.float32).reshape(shape2), zero,
-          jnp.sin(theta0).astype(jnp.float32).reshape(shape2), zero)
+    st = (xh, zero, yh, zero, uxh, zero, uyh, zero)
     if n_full:
-        call = make_call(segment)
-
-        def body(_, s):
-            return tuple(call(*s, zero, ds))
-
-        st = jax.lax.fori_loop(0, n_full, body, st)
+        st = jax.lax.fori_loop(0, n_full,
+                               lambda _, s: launch(segment, s), st)
     if rem:
-        st = tuple(make_call(rem)(*st, zero, ds))
+        st = launch(rem, st)
     return st[0], st[1], st[2], st[3]
 
 
 def df_trace(pos0, theta0, delta_s, *, steps: int,
              field: str = "fisheye", block_rays: int = 4096,
-             interpret: bool = False, segment: int | None = 512):
+             interpret: bool | None = None, segment: int | None = 512):
     """Double-word RK4 integration; returns float64 final positions
     (hi + lo recombined on host).
 
-    ``segment`` (default 512) runs the trace as chained bounded-compile
-    kernels — required for benchmark-scale trip counts, where the one-shot
-    kernel's Mosaic compile takes minutes.  Pass ``segment=None`` for the
-    single-launch kernel.
+    ``segment`` (default 512) runs the trace as chained resumable kernels
+    of that many steps; pass ``segment=None`` for the single-launch kernel.
     """
     if segment is not None and steps > segment:
         oxh, oxl, oyh, oyl = _df_core_segmented(
@@ -369,6 +347,6 @@ def df_trace(pos0, theta0, delta_s, *, steps: int,
 
 #: backwards-compatible alias
 def df_fisheye_trace(pos0, theta0, delta_s, *, steps, block_rays=4096,
-                     interpret=False):
+                     interpret=None):
     return df_trace(pos0, theta0, delta_s, steps=steps, field="fisheye",
                     block_rays=block_rays, interpret=interpret)

@@ -1,11 +1,10 @@
-"""Fused Pallas dynamic integrator: kinematics + paraxial tangent in VMEM.
+"""Fused dynamic integrator: kinematics + paraxial tangent in registers.
 
 The dynamic tier (engine/dynamic.py) propagates d(state)/d(theta0) with
-``jax.jvp`` through the scan engine — exact, but scan-tier speed (~1 G
-ray-steps/s on-chip vs 24-42 G for the fused kinematic kernels).  ``jvp``
-does not cross ``pallas_call``, so the kernel tier needs the tangent
+``jax.jvp`` through the scan engine — exact, but at scan-tier speed.
+``jvp`` does not cross ``pallas_call``, so the kernel tier needs the tangent
 recurrences written BY HAND.  This module is that: the closed-form
-directional derivative of each fused step map, carried per lane alongside
+directional derivative of each fused step map, carried per ray alongside
 the kinematic state, for the analytic fields x the smooth op subset
 (op1/op2/op6/op8 — the golden ops are excluded by design: their cost
 minimizer is piecewise constant in theta0, so their true tangent is zero
@@ -19,8 +18,8 @@ What rides in the carry per ray (beyond kernels/fused.py's):
   instead of a 2-vector, and the normalization constraint u.du = 0 holds
   by construction;
 * ``sgn, kmah`` — running sign of the transverse spreading
-  ``q = dpos . u_perp`` and the KMAH caustic count (f32 lanes: Mosaic
-  cannot carry i1/i32 through scf.for, kernels/fused.py convention).
+  ``q = dpos . u_perp`` and the KMAH caustic count (carried as f32,
+  like every flag of the kernels/fused.py carry).
 
 The recurrences need the field's HESSIAN (d(grad n) = H . dpos), which the
 kinematic kernels never touch; ``_field_fn_h`` extends the inlined
@@ -59,13 +58,11 @@ from typing import Any, NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytracing_tpu.config import THCK_PARAM
+from raytracing_tpu.kernels.fused import _launch_state, strat_tables
+from raytracing_tpu.kernels.launch import ray_block_call
 from raytracing_tpu.media.fields import _sigmoid
-
-LANES = 128
 
 #: analytic fields with inlined Hessians
 DYN_FUSED_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
@@ -118,12 +115,12 @@ def _field_fn_h(field: str):
     return f
 
 
-def _strat_nag_h(tables, y0: float, inv_hy: float, ny: int):
-    """n / grad / n-tangent / Hessian from VMEM 1-D cell tables.
+def _strat_nag_h(tables_ref, y0: float, inv_hy: float, ny: int):
+    """n / grad / n-tangent / Hessian gathered from the 1-D cell tables.
 
-    The dynamic twin of :func:`kernels.fused._strat_nag` (same gather
-    layout — ``tables`` is the (C, NCH, rows, 128) VMEM value from
-    ``strat_tables``), extended with what the paraxial recurrences need:
+    The dynamic twin of :func:`kernels.fused._strat_nag` (same flat
+    channel-major table from ``strat_tables``), extended with what the
+    paraxial recurrences need:
 
     * ``hyy`` — the exact in-cell second derivative of the evaluated
       surface, i.e. the live form of the reference's dead Hessian splines
@@ -137,22 +134,14 @@ def _strat_nag_h(tables, y0: float, inv_hy: float, ny: int):
 
     Returns ``f(x, y) -> (n, gx, gy, gnx, gny, hxx, hxy, hyy)``.
     """
-    nch = tables.shape[1]
-    chans = tables.shape[0]
+    chans = tables_ref.shape[0] // ny
 
     def nag(x, y):
         fy = jnp.clip((y - y0) * inv_hy, 0.0, float(ny - 1))
         iy = jnp.minimum(jnp.floor(fy), float(ny - 2))
         uy = fy - iy
         ii = iy.astype(jnp.int32)
-        local = jnp.bitwise_and(ii, jnp.int32(LANES - 1))      # ii % 128
-        chunk = jnp.right_shift(ii, jnp.int32(7))              # ii // 128
-        vals = [jnp.zeros_like(y) for _ in range(chans)]
-        for k in range(nch):
-            hit = chunk == k
-            for c in range(chans):
-                g = jnp.take_along_axis(tables[c, k], local, axis=1)
-                vals[c] = jnp.where(hit, g, vals[c])
+        vals = [tables_ref[ii + c * ny] for c in range(chans)]
         zero = jnp.zeros_like(x)
         if chans == 4:
             # C1: one cubic serves n, dn/dy AND d2n/dy2 (media/c1.py)
@@ -174,198 +163,15 @@ def _strat_nag_h(tables, y0: float, inv_hy: float, ny: int):
     return nag
 
 
-def _tile_nag_h(T, bix, biy, meta, tw_dyn=None):
-    """n / grad / n-tangent / Hessian from a 2-D per-cell tile window.
-
-    The dynamic twin of :func:`kernels.fused._tile_nag` (same VMEM window
-    layout, same flat-cell gather, same containment contract) extended
-    with the in-cell derivatives the paraxial recurrences need:
-
-    * ``(gnx, gny)`` — the derivative of the bilinear n channel itself
-      (the parity 2-D table fits n bilinear and (gx, gy) as two
-      independent bicubics, RT_bench.py:455-458 — the scan tier's exact
-      jvp differentiates n as the bilinear);
-    * the full 2x2 gradient Jacobian ``(hxx, hxy, hyx, hyy)`` — the
-      in-cell partials of the two INDEPENDENT bicubic Hermite surfaces
-      (hyx != hxy in general), the live 2-D form of the reference's dead
-      Hessian splines (RT_bench.py:459-462).
-
-    Returns ``nag(x, y) -> 9-channel fvals`` in the kernel layout.
-    """
-    x0, y0, inv_hx, inv_hy, nx, ny, th, tw = meta
-    twf = float(tw) if tw_dyn is None else tw_dyn
-    nchunks = (len(T) + 35) // 36
-
-    def nag(x, y):
-        fx = jnp.clip((x - x0) * inv_hx, 0.0, float(nx - 1))
-        fy = jnp.clip((y - y0) * inv_hy, 0.0, float(ny - 1))
-        ix = jnp.minimum(jnp.floor(fx), float(nx - 2))
-        iy = jnp.minimum(jnp.floor(fy), float(ny - 2))
-        u = fx - ix
-        v = fy - iy
-        lx = ix - bix
-        ly = iy - biy
-        t = (ly * twf + lx).astype(jnp.int32)
-        if nchunks == 1:
-            lane = t
-
-            def corners(ch):
-                return tuple(
-                    jnp.take_along_axis(T[ch * 4 + c], lane, axis=1)
-                    for c in range(4))
-        else:
-            lane = jnp.bitwise_and(t, jnp.int32(LANES - 1))
-            chk = jnp.right_shift(t, jnp.int32(7))
-
-            def corners(ch):
-                out = []
-                for c in range(4):
-                    val = jnp.zeros_like(x)
-                    for k in range(nchunks):
-                        g = jnp.take_along_axis(T[k * 36 + ch * 4 + c],
-                                                lane, axis=1)
-                        val = jnp.where(chk == k, g, val)
-                    out.append(val)
-                return tuple(out)
-
-        # bilinear n + ITS derivative (the n-channel tangent)
-        z00, z01, z10, z11 = corners(0)
-        n = ((1.0 - v) * ((1.0 - u) * z00 + u * z01)
-             + v * ((1.0 - u) * z10 + u * z11))
-        gnx = ((1.0 - v) * (z01 - z00) + v * (z11 - z10)) * inv_hx
-        gny = ((1.0 - u) * (z10 - z00) + u * (z11 - z01)) * inv_hy
-
-        # bicubic Hermite basis + derivatives (shared by gx and gy)
-        v2 = v * v
-        v3 = v2 * v
-        hv = (2.0 * v3 - 3.0 * v2 + 1.0, v3 - 2.0 * v2 + v,
-              -2.0 * v3 + 3.0 * v2, v3 - v2)
-        dv = (6.0 * v2 - 6.0 * v, 3.0 * v2 - 4.0 * v + 1.0,
-              -6.0 * v2 + 6.0 * v, 3.0 * v2 - 2.0 * v)
-        u2 = u * u
-        u3 = u2 * u
-        hu = (2.0 * u3 - 3.0 * u2 + 1.0, u3 - 2.0 * u2 + u,
-              -2.0 * u3 + 3.0 * u2, u3 - u2)
-        du = (6.0 * u2 - 6.0 * u, 3.0 * u2 - 4.0 * u + 1.0,
-              -6.0 * u2 + 6.0 * u, 3.0 * u2 - 2.0 * u)
-
-        def hermite_d(ch0):
-            """(value, d/du, d/dv) of one Hermite surface — the corner
-            fetches are shared by all three (fused._hermite_blend's
-            expressions with basis weights swapped for derivatives)."""
-            f00, f01, f10, f11 = corners(ch0)
-            fv00, fv01, fv10, fv11 = corners(ch0 + 1)
-            fu00, fu01, fu10, fu11 = corners(ch0 + 2)
-            fw00, fw01, fw10, fw11 = corners(ch0 + 3)
-
-            def along_u(wu):
-                c0 = f00 * hv[0] + fv00 * hv[1] + f10 * hv[2] + fv10 * hv[3]
-                c1 = f01 * hv[0] + fv01 * hv[1] + f11 * hv[2] + fv11 * hv[3]
-                c2 = (fu00 * hv[0] + fw00 * hv[1]
-                      + fu10 * hv[2] + fw10 * hv[3])
-                c3 = (fu01 * hv[0] + fw01 * hv[1]
-                      + fu11 * hv[2] + fw11 * hv[3])
-                return c0 * wu[0] + c1 * wu[2] + c2 * wu[1] + c3 * wu[3]
-
-            def along_v(wv):
-                c0 = f00 * wv[0] + fv00 * wv[1] + f10 * wv[2] + fv10 * wv[3]
-                c1 = f01 * wv[0] + fv01 * wv[1] + f11 * wv[2] + fv11 * wv[3]
-                c2 = (fu00 * wv[0] + fw00 * wv[1]
-                      + fu10 * wv[2] + fw10 * wv[3])
-                c3 = (fu01 * wv[0] + fw01 * wv[1]
-                      + fu11 * wv[2] + fw11 * wv[3])
-                return c0 * hu[0] + c1 * hu[2] + c2 * hu[1] + c3 * hu[3]
-
-            return along_u(hu), along_u(du), along_v(dv)
-
-        gx, gx_u, gx_v = hermite_d(1)
-        gy, gy_u, gy_v = hermite_d(5)
-        return (n, gx, gy, gnx, gny,
-                gx_u * inv_hx, gx_v * inv_hy,
-                gy_u * inv_hx, gy_v * inv_hy)
-
-    return nag
-
-
-def _tile_nag_c1_h(T, bix, biy, meta, tw_dyn=None):
-    """C1 twin of :func:`_tile_nag_h`: 16-float cells, symmetric Hessian.
-
-    The consistent-gradient family evaluates n AND its gradient from ONE
-    bicubic patch (media/c1.c1_blend), so the dynamic tier's Hessian is
-    the exact second derivative of that SAME patch — symmetric by
-    construction (hyx == hxy), and gn == g.  4 channels x 4 corners = 16
-    gathers per evaluation, the same 16/36 saving the kinematic C1
-    kernels measured (ARCHITECTURE "C1 consistent-gradient media").
-    The blend itself is media/c1.c1_blend_h — the ONE Hessian-grade C1
-    definition, shared with the 3-D window evaluator _tile_nag3_h.
-    """
-    from raytracing_tpu.media.c1 import c1_blend_h
-
-    x0, y0, inv_hx, inv_hy, nx, ny, th, tw = meta
-    twf = float(tw) if tw_dyn is None else tw_dyn
-    nchunks = (len(T) + 15) // 16
-
-    def nag(x, y):
-        fx = jnp.clip((x - x0) * inv_hx, 0.0, float(nx - 1))
-        fy = jnp.clip((y - y0) * inv_hy, 0.0, float(ny - 1))
-        ix = jnp.minimum(jnp.floor(fx), float(nx - 2))
-        iy = jnp.minimum(jnp.floor(fy), float(ny - 2))
-        u = fx - ix
-        v = fy - iy
-        lx = ix - bix
-        ly = iy - biy
-        t = (ly * twf + lx).astype(jnp.int32)
-        if nchunks == 1:
-            lane = t
-
-            def corners(ch):
-                return tuple(
-                    jnp.take_along_axis(T[ch * 4 + c], lane, axis=1)
-                    for c in range(4))
-        else:
-            lane = jnp.bitwise_and(t, jnp.int32(LANES - 1))
-            chk = jnp.right_shift(t, jnp.int32(7))
-
-            def corners(ch):
-                out = []
-                for c in range(4):
-                    val = jnp.zeros_like(x)
-                    for k in range(nchunks):
-                        g = jnp.take_along_axis(T[k * 16 + ch * 4 + c],
-                                                lane, axis=1)
-                        val = jnp.where(chk == k, g, val)
-                    out.append(val)
-                return tuple(out)
-
-        n, gx, gy, hxx, hxy, hyy = c1_blend_h(corners, u, v,
-                                              inv_hx, inv_hy)
-        return n, gx, gy, gx, gy, hxx, hxy, hxy, hyy
-
-    return nag
-
-
-def _make_dynamic_kernel(field: str, op: str, steps: int, box, strat=None,
-                         tile=None, resume: bool = False,
-                         tile_channels: int = 36):
+def _make_dynamic_kernel(field: str, op: str, steps: int, box, strat=None):
     """Build the fused dynamic step kernel (kernels/fused.py structure).
 
     ``strat`` = (y0, inv_hy, ny) switches the field evaluation from the
-    inlined analytic Hessian twins to VMEM 1-D cell tables
+    inlined analytic Hessian twins to the 1-D cell tables
     (``_strat_nag_h``), and splits the n-channel tangent from the
     ray-equation gradient (the parity stratified family is gradient-
     inconsistent by reference design, docs/PARITY.md).
-
-    ``tile`` = meta + (th, tw) evaluates from a per-BLOCK 2-D cell window
-    in VMEM (``_tile_nag_h`` — kernels/fused's tiled-window contract with
-    Hessian channels), and ``resume`` makes the kernel segmentable: the
-    FULL dynamic state (18 components: kinematics + Kahan compensations +
-    paraxial tangents + their compensations + caustic bookkeeping) reads
-    from input refs and writes back, with the global step offset in the
-    scalar bundle — the engine chains bounded launches and re-centers the
-    windows between them (engine/segmented.grid_trace_dynamic_tiled).
     """
-    if tile is not None and not resume:
-        raise ValueError("tiled dynamic kernels are segment-resumable only")
     # field values carried between steps: one uniform 9-channel layout
     # (n, gx, gy, gnx, gny, hxx, hxy, hyx, hyy) — gn is the n-channel's
     # OWN derivative (parity stratified/2-D tables are gradient-
@@ -378,29 +184,16 @@ def _make_dynamic_kernel(field: str, op: str, steps: int, box, strat=None,
     limx_i, limx_s, limy_i, limy_s = [float(v) for v in box]
 
     def kernel_impl(nag, *refs):
-        if resume:
-            in_refs, zero_ref, ds_ref = refs[:18], refs[18], refs[19]
-            out_refs = refs[20:]
-            vals = [r[...] for r in in_refs]
-            (x, y, cx0, cy0, ux, uy, tt0, dsim0, act0, dpx0, dpy0, dth0,
-             sgn0, kmah0, kdx0, kdy0, kdt0, ktt0) = vals
-            zero = zero_ref[...]
-            ds = ds_ref[0]
-            limit = ds_ref[1]
-            offset = ds_ref[2]       # steps applied before this segment
-        else:
-            (x_ref, y_ref, ux_ref, uy_ref, zero_ref, ds_ref), out_refs = \
-                refs[:6], refs[6:]
-            x, y = x_ref[...], y_ref[...]
-            ux, uy = ux_ref[...], uy_ref[...]
-            zero = zero_ref[...]
-            ds = ds_ref[0]
-            limit = ds_ref[1]
-            offset = 0.0
-            cx0 = cy0 = tt0 = dsim0 = sgn0 = kmah0 = zero
-            kdx0 = kdy0 = kdt0 = ktt0 = dpx0 = dpy0 = zero
-            act0 = zero + 1.0
-            dth0 = zero + 1.0
+        (x_ref, y_ref, ux_ref, uy_ref, ds_ref), out_refs = refs[:5], refs[5:]
+        x, y = x_ref[...], y_ref[...]
+        ux, uy = ux_ref[...], uy_ref[...]
+        zero = jnp.zeros_like(x)
+        ds = ds_ref[0]
+        limit = ds_ref[1]
+        cx0 = cy0 = tt0 = dsim0 = sgn0 = kmah0 = zero
+        kdx0 = kdy0 = kdt0 = ktt0 = dpx0 = dpy0 = zero
+        act0 = zero + 1.0
+        dth0 = zero + 1.0
 
         def rot(ax, ay, d):
             # degree-5 small-angle rotation (kernels/fused.py RK2 note)
@@ -419,7 +212,7 @@ def _make_dynamic_kernel(field: str, op: str, steps: int, box, strat=None,
             return t, (t - old) - y2
 
         def body(i, carry):
-            in_limit = i.astype(jnp.float32) + offset < limit
+            in_limit = i.astype(jnp.float32) < limit
             x, y, cx, cy, ux, uy = carry[:6]
             fvals = carry[6:6 + nf]
             (tt, dsim, active, dpx, dpy, dth, sgn, kmah,
@@ -544,34 +337,16 @@ def _make_dynamic_kernel(field: str, op: str, steps: int, box, strat=None,
                   + (tt0, dsim0, act0, dpx0, dpy0, dth0, sgn0, kmah0,
                      kdx0, kdy0, kdt0, ktt0))
         final = jax.lax.fori_loop(0, steps, body, carry0)
-        if resume:
-            outs = final[:6] + final[6 + nf:]
-        else:
-            fx, fy, _, _, fux, fuy = final[:6]
-            fn = final[6]
-            (ftt, fdsim, fact, fdpx, fdpy,
-             fdth, _, fkmah) = final[6 + nf:6 + nf + 8]
-            outs = (fx, fy, fux, fuy, fn, ftt, fdsim, fact, fdpx, fdpy,
-                    fdth, fkmah)
+        fx, fy, _, _, fux, fuy = final[:6]
+        fn = final[6]
+        (ftt, fdsim, fact, fdpx, fdpy,
+         fdth, _, fkmah) = final[6 + nf:6 + nf + 8]
+        outs = (fx, fy, fux, fuy, fn, ftt, fdsim, fact, fdpx, fdpy,
+                fdth, fkmah)
         for ref, val in zip(out_refs, outs):
             ref[...] = val
 
-    if tile is not None:
-        n_ch = (-(-tile[6] * tile[7] // LANES)) * tile_channels
-        tile_nag = _tile_nag_h if tile_channels == 36 else _tile_nag_c1_h
-
-        def kernel(tile_ref, base_ref, *refs):
-            rows = refs[0].shape[0]
-            tv = tile_ref[0]
-            # hoist the sublane broadcasts (kernels/fused tile kernel)
-            T = [jnp.broadcast_to(tv[i:i + 1, :], (rows, LANES))
-                 for i in range(n_ch)]
-            b = pl.program_id(0)
-            kernel_impl(
-                tile_nag(T, base_ref[b, 0], base_ref[b, 1], tile,
-                         tw_dyn=base_ref[b, 2]),
-                *refs)
-    elif strat is None:
+    if strat is None:
         nag_a = _field_fn_h(field)
 
         def kernel(*refs):
@@ -580,8 +355,7 @@ def _make_dynamic_kernel(field: str, op: str, steps: int, box, strat=None,
         y0, inv_hy, ny = strat
 
         def kernel(tables_ref, *refs):
-            kernel_impl(_strat_nag_h(tables_ref[...], y0, inv_hy, ny),
-                        *refs)
+            kernel_impl(_strat_nag_h(tables_ref, y0, inv_hy, ny), *refs)
 
     return kernel
 
@@ -608,7 +382,7 @@ class DynFinal(NamedTuple):
                                              "block_rays", "interpret"))
 def dynamic_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
                         steps: int, box, block_rays: int = 4096,
-                        interpret: bool = False,
+                        interpret: bool | None = None,
                         step_limit=None) -> DynFinal:
     """Fused dynamic trace: kinematics + exact-map paraxial tangent.
 
@@ -627,36 +401,11 @@ def dynamic_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
         raise ValueError(
             f"dynamic kernel supports ops {DYN_FUSED_OPS} (the golden ops' "
             f"tangent is zero a.e. — engine/dynamic.py), got {op!r}")
-    r = pos0.shape[0]
-    if r % block_rays:
-        raise ValueError(f"rays {r} not a multiple of block {block_rays}")
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
-    x = pos0[:, 0].reshape(shape2)
-    y = pos0[:, 1].reshape(shape2)
-    ux = jnp.cos(theta0).reshape(shape2)
-    uy = jnp.sin(theta0).reshape(shape2)
-    if step_limit is None:
-        step_limit = steps
-    ds = jnp.stack([jnp.asarray(delta_s, jnp.float32),
-                    jnp.asarray(step_limit, jnp.float32)])
+    x, y, ux, uy, ds = _launch_state(pos0, theta0, delta_s, step_limit,
+                                     steps, pos0.shape[0], block_rays)
     kernel = _make_dynamic_kernel(field, op, steps, box)
-    blk = pl.BlockSpec((rows, LANES), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-    outs = pl.pallas_call(
-        kernel,
-        grid=(r // block_rays,),
-        in_specs=[blk, blk, blk, blk, blk,
-                  pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=[blk] * 12,
-        out_shape=[jax.ShapeDtypeStruct(shape2, jnp.float32)] * 12,
-        cost_estimate=pl.CostEstimate(
-            flops=160 * r * steps, bytes_accessed=20 * 4 * r,
-            # the rational fields are transcendental-free; interface pays
-            # one exp per ray-step (the VPU cost ceiling, CLAUDE.md)
-            transcendentals=r * steps if field == "interface" else 0),
-        interpret=interpret,
-    )(x, y, ux, uy, jnp.zeros(shape2, jnp.float32), ds)
+    outs = ray_block_call(kernel, [x, y, ux, uy], ds, 12,
+                          interpret=interpret, name=f"dynamic_{op}_{field}")
     return _pack_dyn_final(outs)
 
 
@@ -664,22 +413,19 @@ def _pack_dyn_final(outs) -> DynFinal:
     (fx, fy, fux, fuy, fn, tt, dsim, act, dpx, dpy, dth, kmah) = outs
     # q from the carried tangent and the exit direction (engine/dynamic.py
     # computes the same contraction after its scan)
-    q = (dpx.reshape(-1) * (-fuy.reshape(-1))
-         + dpy.reshape(-1) * fux.reshape(-1))
+    q = dpx * (-fuy) + dpy * fux
     return DynFinal(
-        pos=jnp.stack([fx.reshape(-1), fy.reshape(-1)], axis=-1),
-        tangent=jnp.stack([fux.reshape(-1), fuy.reshape(-1)], axis=-1),
-        n=fn.reshape(-1), traveltime=tt.reshape(-1),
-        dist_sim=dsim.reshape(-1), active=act.reshape(-1) > 0.5, q=q,
-        dtheta=dth.reshape(-1),
-        kmah=kmah.reshape(-1).astype(jnp.int32))
+        pos=jnp.stack([fx, fy], axis=-1),
+        tangent=jnp.stack([fux, fuy], axis=-1),
+        n=fn, traveltime=tt, dist_sim=dsim, active=act > 0.5, q=q,
+        dtheta=dth, kmah=kmah.astype(jnp.int32))
 
 
 @functools.partial(jax.jit, static_argnames=("op", "steps", "box",
                                              "block_rays", "interpret"))
 def dynamic_trace_final_strat(pos0, theta0, delta_s, medium, *, op: str,
                               steps: int, box, block_rays: int = 4096,
-                              interpret: bool = False,
+                              interpret: bool | None = None,
                               step_limit=None) -> DynFinal:
     """Fused dynamic trace through a SAMPLED stratified medium.
 
@@ -689,8 +435,8 @@ def dynamic_trace_final_strat(pos0, theta0, delta_s, medium, *, op: str,
     spline).  The Hessian each tangent needs is exactly the in-cell
     second derivative the 1-D cell tables already encode — the live form
     of the reference's dead Hessian splines (RT_bench.py:459-462) — so
-    the kernel evaluates it with the same ``tpu.dynamic_gather`` pass
-    that fetches n and dn/dy (``_strat_nag_h``).  Accepts the parity
+    the kernel evaluates it from the same per-ray gathers that fetch n and
+    dn/dy (``_strat_nag_h``).  Accepts the parity
     ``media.spline.StratifiedGridMedium`` (6 channels; the n-channel
     tangent is split from the ray-equation gradient to match the scan
     tier's exact jvp of the inconsistent pair) and the consistent
@@ -700,41 +446,10 @@ def dynamic_trace_final_strat(pos0, theta0, delta_s, medium, *, op: str,
         raise ValueError(
             f"dynamic kernel supports ops {DYN_FUSED_OPS} (the golden ops' "
             f"tangent is zero a.e. — engine/dynamic.py), got {op!r}")
-    from raytracing_tpu.kernels.fused import strat_tables
-
-    r = pos0.shape[0]
-    if r % block_rays:
-        raise ValueError(f"rays {r} not a multiple of block {block_rays}")
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
-    x = jnp.asarray(pos0[:, 0], jnp.float32).reshape(shape2)
-    y = jnp.asarray(pos0[:, 1], jnp.float32).reshape(shape2)
-    ux = jnp.cos(theta0).astype(jnp.float32).reshape(shape2)
-    uy = jnp.sin(theta0).astype(jnp.float32).reshape(shape2)
-    if step_limit is None:
-        step_limit = steps
-    ds = jnp.stack([jnp.asarray(delta_s, jnp.float32),
-                    jnp.asarray(step_limit, jnp.float32)])
-    tables, strat, nch = strat_tables(medium, rows)
+    x, y, ux, uy, ds = _launch_state(pos0, theta0, delta_s, step_limit,
+                                     steps, pos0.shape[0], block_rays)
+    tables, strat = strat_tables(medium)
     kernel = _make_dynamic_kernel("stratified", op, steps, box, strat=strat)
-    blk = pl.BlockSpec((rows, LANES), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-    outs = pl.pallas_call(
-        kernel,
-        grid=(r // block_rays,),
-        in_specs=[pl.BlockSpec((tables.shape[0], nch, rows, LANES),
-                               lambda i: (0, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-                  blk, blk, blk, blk, blk,
-                  pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=[blk] * 12,
-        out_shape=[jax.ShapeDtypeStruct(shape2, jnp.float32)] * 12,
-        cost_estimate=pl.CostEstimate(
-            # two table evaluations per step (carry refresh + post-move),
-            # each ~30 flops per gathered channel chunk (fused.py's model)
-            flops=(160 + 30 * nch * tables.shape[0]) * r * steps,
-            bytes_accessed=(20 + tables.shape[0] * nch) * 4 * r,
-            transcendentals=0),
-        interpret=interpret,
-    )(tables, x, y, ux, uy, jnp.zeros(shape2, jnp.float32), ds)
+    outs = ray_block_call(kernel, [x, y, ux, uy], ds, 12, tables=(tables,),
+                          interpret=interpret, name=f"dynamic_{op}_strat")
     return _pack_dyn_final(outs)

@@ -1,12 +1,10 @@
-"""Fused Pallas 3-D dynamic integrator: two paraxial tangents in VMEM.
+"""Fused 3-D dynamic integrator: two paraxial tangents in registers.
 
 The 3-D dynamic tier (engine/dynamic3d.py) rides two exact ``jax.jvp``
-tangents through the scan — 0.30 G ray-steps/s at 262k rays on-chip
-(benchmarks/logs_r4/07), 20x under the fused 3-D kinematic kernel.  As in
-2-D (kernels/dynamic.py), ``jvp`` does not cross ``pallas_call``, so this
+tangents through the scan, at scan-tier speed.  As in 2-D (kernels/dynamic.py), ``jvp`` does not cross ``pallas_call``, so this
 module hand-derives the directional derivative of the fused 3-D step map
 (kernels/fused3d._step_body3's algebra) and carries BOTH launch-parameter
-tangents per lane: ``(dpa, dua)`` and ``(dpb, dub)`` — d(pos)/d(angle) and
+tangents per ray: ``(dpa, dua)`` and ``(dpb, dub)`` — d(pos)/d(angle) and
 d(u)/d(angle) for the two transverse launch angles.
 
 Unlike 2-D, the 3-D unit-tangent derivative cannot collapse to one scalar;
@@ -58,11 +56,10 @@ from typing import Any, NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytracing_tpu.config import THCK_PARAM
-from raytracing_tpu.kernels.fused3d import CELL3_CH, LANES, _rot_coeffs
+from raytracing_tpu.kernels.fused3d import _rot_coeffs
+from raytracing_tpu.kernels.launch import ray_block_call
 from raytracing_tpu.media.fields import _sigmoid
 
 #: analytic fields with inlined 3-D Hessians
@@ -160,11 +157,9 @@ def _dyn_step_body3(op: str, box, eval_h, zero, ds, limit, offset=0.0):
 
     The paraxial twin of :func:`kernels.fused3d._step_body3`: ONE
     definition of the kinematic step + both hand-derived launch tangents
-    (module docstring) serves the analytic fused dynamic kernel AND the
-    tiled sampled-grid3 dynamic kernel — ``eval_h(pos3) -> (n, gx, gy,
-    gz, hxx, hxy, hxz, hyy, hyz, hzz)`` is the only seam (inlined
-    analytic Hessians vs the VMEM window contraction
-    :func:`_tile_nag3_h`).  ``offset`` is the global step count before
+    (module docstring); ``eval_h(pos3) -> (n, gx, gy, gz, hxx, hxy, hxz,
+    hyy, hyz, hzz)`` is the medium seam.  ``offset`` is the global step
+    count before
     this launch (resume-chained kernels); the caustic bookkeeping
     (past-source guard, focus locator step index) runs on the GLOBAL
     step so segmented chains match one unsegmented launch.
@@ -321,12 +316,12 @@ def _make_dyn_kernel3(field: str, op: str, steps: int, box):
 
     def kernel(x_ref, y_ref, z_ref, ux_ref, uy_ref, uz_ref,
                e1x_ref, e1y_ref, e1z_ref, e2x_ref, e2y_ref, e2z_ref,
-               zero_ref, ds_ref, *out_refs):
+               ds_ref, *out_refs):
         pos = (x_ref[...], y_ref[...], z_ref[...])
         u = (ux_ref[...], uy_ref[...], uz_ref[...])
         dua = (e1x_ref[...], e1y_ref[...], e1z_ref[...])
         dub = (e2x_ref[...], e2y_ref[...], e2z_ref[...])
-        zero = zero_ref[...]
+        zero = jnp.zeros_like(pos[0])
         z3 = (zero, zero, zero)
         ds = ds_ref[0]
         limit = ds_ref[1]
@@ -352,137 +347,6 @@ def _make_dyn_kernel3(field: str, op: str, steps: int, box):
     return kernel
 
 
-def _tile_nag3_h(T, bix, biy, biz, meta3, tw_dyn=None, th_dyn=None,
-                 td_dyn=None):
-    """n / grad / Hessian of the tri-Hermite patch from a VMEM window.
-
-    The dynamic twin of :func:`kernels.fused3d._tile_nag3` (same 64-float
-    per-cell window layout, same gather, same containment contract)
-    extended with the exact second derivatives of the SAME tricubic
-    patch that the paraxial recurrences need — the 3-D form of
-    :func:`kernels.dynamic._tile_nag_c1_h`: because grid3 media are
-    C1-consistent by construction (media/grid3.py), the Hessian is
-    symmetric and ``gn == g``.
-
-    Evaluation: the z axis collapses with the value, derivative AND
-    second-derivative 1-D Hermite bases; the hw patch takes the shared
-    2-D Hessian blend (media/c1.c1_blend_h), the dw patch the gradient
-    blend (its x/y derivatives ARE hxz/hyz), the ddw patch the value
-    blend (hzz).  All 64 floats of the lane's cell are gathered once and
-    reused by all three collapses.
-
-    Returns ``nag(x, y, z) -> (n, gx, gy, gz, hxx, hxy, hxz, hyy, hyz,
-    hzz)`` — exactly :func:`_dyn_step_body3`'s ``eval_h`` contract.
-    """
-    from raytracing_tpu.kernels.fused3d import _tile_cell_locate3
-    from raytracing_tpu.media.c1 import (c1_blend, c1_blend_h,
-                                         hermite_d2basis, hermite_dbasis)
-    from raytracing_tpu.media.hermite import hermite_basis
-
-    (inv_hx, inv_hy, inv_hz) = meta3[3:6]
-    locate = _tile_cell_locate3(T, bix, biy, biz, meta3, tw_dyn, th_dyn,
-                                td_dyn)
-
-    def nag(x, y, z):
-        ux, uy, uz, wblend = locate(x, y, z)
-        hw = hermite_basis(uz)
-        dw = hermite_dbasis(uz)
-        ddw = hermite_d2basis(uz)
-        n, gx, gy, hxx, hxy, hyy = c1_blend_h(wblend(hw), ux, uy,
-                                              inv_hx, inv_hy)
-        gzv, hxzv, hyzv = c1_blend(wblend(dw), ux, uy, inv_hx, inv_hy)
-        hzz = c1_blend(wblend(ddw), ux, uy, inv_hx, inv_hy)[0] \
-            * (inv_hz * inv_hz)
-        return (n, gx, gy, gzv * inv_hz,
-                hxx, hxy, hxzv * inv_hz, hyy, hyzv * inv_hz, hzz)
-
-    return nag
-
-
-#: per-ray dynamic state chained between tiled 3-D segments: pos(3) +
-#: u(3) + dpa(3) + dua(3) + dpb(3) + dub(3) + (tt, dsim, active, sgn,
-#: kmah, mind, minstep)
-DYN3_TILE_STATE = 25
-
-
-def _make_dyn_tile_kernel3(op: str, segment: int, box, meta3):
-    """Resumable tiled-window 3-D DYNAMIC kernel: 25 state refs in, 26 out.
-
-    The paraxial twin of :func:`kernels.fused3d._make_tile_kernel3`:
-    refs ``(tile, bases) + state + (zero, ds)`` -> 25 state out refs
-    plus the per-lane max window excess (the exact in-kernel containment
-    measurement, :func:`kernels.fused3d._window_excess3`), with the
-    :data:`DYN3_TILE_STATE` layout.  ``ds`` is the (3,) SMEM bundle
-    (delta_s, limit, offset) — the offset keeps the caustic bookkeeping
-    on the GLOBAL step across segment chains (module docstring of
-    :func:`_dyn_step_body3`); ``bases`` the (nblocks, 6) SMEM window
-    table indexed 2-D by program id (Mosaic rejects SMEM sub-ref views,
-    CLAUDE.md).  n/grad/Hessian re-evaluate from the fresh window at
-    segment start — the same table floats the previous segment's last
-    step read, so chained launches are bit-identical to one long one.
-    """
-    from raytracing_tpu.kernels.fused3d import _window_excess3
-
-    td, th, tw = meta3[9], meta3[10], meta3[11]
-    n_ch = (-(-td * th * tw // LANES)) * CELL3_CH
-
-    def kernel(tile_ref, base_ref, *refs):
-        in_refs = refs[:DYN3_TILE_STATE]
-        zero_ref, ds_ref = refs[DYN3_TILE_STATE], refs[DYN3_TILE_STATE + 1]
-        out_refs = refs[DYN3_TILE_STATE + 2:]
-        rows = in_refs[0].shape[0]
-        tv = tile_ref[0]
-        T = [jnp.broadcast_to(tv[i:i + 1, :], (rows, LANES))
-             for i in range(n_ch)]
-        b = pl.program_id(0)
-        nagh = _tile_nag3_h(T, base_ref[b, 0], base_ref[b, 1],
-                            base_ref[b, 2], meta3,
-                            tw_dyn=base_ref[b, 3], th_dyn=base_ref[b, 4],
-                            td_dyn=base_ref[b, 5])
-        exc = _window_excess3(base_ref[b, 0], base_ref[b, 1],
-                              base_ref[b, 2], meta3,
-                              tw_dyn=base_ref[b, 3],
-                              th_dyn=base_ref[b, 4],
-                              td_dyn=base_ref[b, 5])
-        vals = [r[...] for r in in_refs]
-        pos = tuple(vals[0:3])
-        u = tuple(vals[3:6])
-        dpa = tuple(vals[6:9])
-        dua = tuple(vals[9:12])
-        dpb = tuple(vals[12:15])
-        dub = tuple(vals[15:18])
-        tt, dsim, active, sgn, kmah, mind, minstep = vals[18:]
-        zero = zero_ref[...]
-        ds = ds_ref[0]
-        limit = ds_ref[1]
-        offset = ds_ref[2]
-
-        def eval_h(p):
-            return nagh(p[0], p[1], p[2])
-
-        inner = _dyn_step_body3(op, box, eval_h, zero, ds, limit,
-                                offset=offset)
-
-        def body(i, carry):
-            new = inner(i, carry[:-1])
-            v = exc(*new[0])
-            return new + (jnp.maximum(carry[-1], v),)
-
-        out10 = eval_h(pos)
-        n0, g0, h0 = out10[0], out10[1:4], out10[4:]
-        carry0 = (pos, u, dpa, dua, dpb, dub, n0, g0, h0, tt, dsim,
-                  active, sgn, kmah, mind, minstep, exc(*pos))
-        final = jax.lax.fori_loop(0, segment, body, carry0)
-        (fpos, fu, fdpa, fdua, fdpb, fdub, _, _, _, ftt, fdsim, fact,
-         fsgn, fkmah, fmind, fminstep, fviol) = final
-        outs = (fpos + fu + fdpa + fdua + fdpb + fdub
-                + (ftt, fdsim, fact, fsgn, fkmah, fmind, fminstep, fviol))
-        for ref, val in zip(out_refs, outs):
-            ref[...] = val
-
-    return kernel
-
-
 class Dyn3Final(NamedTuple):
     """Final-state bundle of a fused 3-D dynamic run (arrays length R)."""
 
@@ -502,7 +366,7 @@ class Dyn3Final(NamedTuple):
                                              "block_rays", "interpret"))
 def dynamic3d_trace_final(pos0, dir0, delta_s, *, field: str, op: str,
                           steps: int, box, block_rays: int = 1024,
-                          interpret: bool = False,
+                          interpret: bool | None = None,
                           step_limit=None) -> Dyn3Final:
     """Run ``steps`` fused 3-D DYNAMIC steps; return a Dyn3Final.
 
@@ -524,16 +388,10 @@ def dynamic3d_trace_final(pos0, dir0, delta_s, *, field: str, op: str,
     r = pos0.shape[0]
     if r % block_rays:
         raise ValueError(f"rays {r} not a multiple of block {block_rays}")
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
     dir0 = jnp.asarray(dir0, jnp.float32)
     dir0 = dir0 / jnp.linalg.norm(dir0, axis=-1, keepdims=True)
     pos0 = jnp.asarray(pos0, jnp.float32)
     e1, e2 = _transverse_frame(dir0)
-    planes = [pos0[:, k].reshape(shape2) for k in range(3)]
-    tangents = [dir0[:, k].reshape(shape2) for k in range(3)]
-    e1p = [e1[:, k].reshape(shape2) for k in range(3)]
-    e2p = [e2[:, k].reshape(shape2) for k in range(3)]
     if step_limit is None:
         step_limit = steps
     ds = jnp.stack([jnp.asarray(delta_s, jnp.float32),
@@ -541,27 +399,14 @@ def dynamic3d_trace_final(pos0, dir0, delta_s, *, field: str, op: str,
 
     kernel = _make_dyn_kernel3(field, op, steps,
                                tuple(float(v) for v in box))
-    blk = pl.BlockSpec((rows, LANES), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-    outs = pl.pallas_call(
-        kernel,
-        grid=(r // block_rays,),
-        in_specs=[blk] * 13 + [pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=[blk] * 14,
-        out_shape=[jax.ShapeDtypeStruct(shape2, jnp.float32)] * 14,
-        cost_estimate=pl.CostEstimate(flops=600 * r * steps,
-                                      bytes_accessed=28 * 4 * r,
-                                      transcendentals=2 * r * steps),
-        interpret=interpret,
-    )(*planes, *tangents, *e1p, *e2p, jnp.zeros(shape2, jnp.float32), ds)
+    comps = [a[:, k] for a in (pos0, dir0, e1, e2) for k in range(3)]
     (fx, fy, fz, fux, fuy, fuz, tt, dsim, act, det, kmah, n,
-     mind, minstep) = outs
-    flat = lambda a: a.reshape(-1)  # noqa: E731
+     mind, minstep) = ray_block_call(kernel, comps, ds, 14,
+                                     interpret=interpret,
+                                     name=f"dynamic3d_{op}_{field}")
     return Dyn3Final(
-        pos=jnp.stack([flat(fx), flat(fy), flat(fz)], -1),
-        tangent=jnp.stack([flat(fux), flat(fuy), flat(fuz)], -1),
-        traveltime=flat(tt), dist_sim=flat(dsim),
-        active=flat(act) > 0.5, detq=flat(det),
-        kmah=flat(kmah).astype(jnp.int32), n=flat(n),
-        min_absdet=flat(mind),
-        min_absdet_step=flat(minstep).astype(jnp.int32))
+        pos=jnp.stack([fx, fy, fz], -1),
+        tangent=jnp.stack([fux, fuy, fuz], -1),
+        traveltime=tt, dist_sim=dsim, active=act > 0.5, detq=det,
+        kmah=kmah.astype(jnp.int32), n=n, min_absdet=mind,
+        min_absdet_step=minstep.astype(jnp.int32))

@@ -5,8 +5,8 @@ Generalizes the fisheye-op1 kernel to a factory over
 ``op in {op1, op2, op6, op8}`` (the 1st/2nd-order Taylor steppers paired
 with the analytic momentum-impulse and RK2 angle updates — op6 is HySA, the
 headline algorithm of the JASA paper; RT_bench.py:469-515, 602-624,
-652-674).  Ray-state tiles stay resident in VMEM across every integration
-step; per-step HBM traffic is zero.
+652-674).  Each ray's state stays in registers across every integration
+step (kernels/launch.py); per-step device-memory traffic is zero.
 
 Design notes:
 
@@ -16,9 +16,9 @@ Design notes:
   increment only, never atan2.
 * Kahan-compensated position accumulation holds float32 trajectories to
   ~1e-7 over thousands of steps.
-* Boundary exit (RT_bench.py:878-879) is a lane mask; finished rays freeze.
-  All four scenario boxes work; the fisheye never exits and the mask folds
-  away into ~6 cheap VPU ops.
+* Boundary exit (RT_bench.py:878-879) is a per-ray mask; finished rays
+  freeze.  All four scenario boxes work; the fisheye never exits and the
+  mask costs a handful of compares.
 """
 from __future__ import annotations
 
@@ -29,11 +29,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytracing_tpu.config import THCK_PARAM
-
-LANES = 128
+from raytracing_tpu.kernels.launch import ray_block_call
 
 FUSED_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
 FUSED_OPS = ("op1", "op2", "op3", "op4", "op6", "op7", "op8", "op12")
@@ -62,34 +60,24 @@ def _field_fn(field: str):
     return f
 
 
-def _strat_nag(tables, y0: float, inv_hy: float, ny: int):
-    """n/grad evaluator gathering from VMEM-resident 1-D cell tables.
+def _strat_nag(tables_ref, y0: float, inv_hy: float, ny: int):
+    """n/grad evaluator gathering per ray from the 1-D cell tables.
 
     Mirrors media/spline.StratifiedGridMedium.n_and_grad: bilinear n from the
     sampled column, cubic dn/dy from per-cell coefficients (the reference's
     FITPACK pair, RT_bench.py:455-458, collapsed to 1-D for x-independent
-    fields).  Gathers lower to Mosaic's ``tpu.dynamic_gather``, which spans at
-    most one vreg (128 lanes) along the gather axis — so each channel lives as
-    128-entry lane chunks replicated over sublanes, gathered per chunk along
-    axis 1 and combined with a chunk-id select.  ``tables`` is the
-    (6, NCH, rows, 128) VMEM value; channels: Zy[i], Zy[i+1], cy[i, 0..3].
+    fields).  ``tables_ref`` holds the channel-major flat table of
+    :func:`strat_tables` (channel ``c`` of cell ``i`` at ``c * ny + i``);
+    every channel is one gather straight from device memory.
     """
-    nch = tables.shape[1]
-    chans = tables.shape[0]              # 6 parity / 4 C1 (see strat_tables)
+    chans = tables_ref.shape[0] // ny    # 6 parity / 4 C1 (see strat_tables)
 
     def nag(x, y):
         fy = jnp.clip((y - y0) * inv_hy, 0.0, float(ny - 1))
         iy = jnp.minimum(jnp.floor(fy), float(ny - 2))
         uy = fy - iy
         ii = iy.astype(jnp.int32)
-        local = jnp.bitwise_and(ii, jnp.int32(LANES - 1))      # ii % 128
-        chunk = jnp.right_shift(ii, jnp.int32(7))              # ii // 128
-        vals = [jnp.zeros_like(y) for _ in range(chans)]
-        for k in range(nch):
-            hit = chunk == k
-            for c in range(chans):
-                g = jnp.take_along_axis(tables[c, k], local, axis=1)
-                vals[c] = jnp.where(hit, g, vals[c])
+        vals = [tables_ref[ii + c * ny] for c in range(chans)]
         if chans == 4:
             # consistent C1 cubic: n and dn/dy from the same coefficients
             # (the expressions mirror media.c1.C1StratifiedMedium.n_and_grad)
@@ -105,226 +93,40 @@ def _strat_nag(tables, y0: float, inv_hy: float, ny: int):
     return nag
 
 
-def _hermite_blend(corners, u, v):
-    """Bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8).
+def strat_tables(medium):
+    """Pack a 1-D stratified medium into the kernels' channel table.
 
-    ``corners(ch) -> (c00, c01, c10, c11)`` fetches a channel's 2x2 corner
-    node values at the per-lane cell (c01 = +x neighbor, c10 = +y); how they
-    are fetched (block selects, tile gathers) is the caller's concern.  The
-    blend math is the single shared definition — identical expressions mean
-    bit-identical trajectories across the supercell and tiled kernels.
-    """
-    # bilinear n from the Z channel
-    z00, z01, z10, z11 = corners(0)
-    n = ((1.0 - v) * ((1.0 - u) * z00 + u * z01)
-         + v * ((1.0 - u) * z10 + u * z11))
-
-    # bicubic Hermite gradients; basis weights shared by both components
-    v2 = v * v
-    v3 = v2 * v
-    hv0 = 2.0 * v3 - 3.0 * v2 + 1.0
-    gv0 = v3 - 2.0 * v2 + v
-    hv1 = -2.0 * v3 + 3.0 * v2
-    gv1 = v3 - v2
-    u2 = u * u
-    u3 = u2 * u
-    hu0 = 2.0 * u3 - 3.0 * u2 + 1.0
-    gu0 = u3 - 2.0 * u2 + u
-    hu1 = -2.0 * u3 + 3.0 * u2
-    gu1 = u3 - u2
-
-    def hermite(ch0):
-        f00, f01, f10, f11 = corners(ch0)
-        fv00, fv01, fv10, fv11 = corners(ch0 + 1)
-        fu00, fu01, fu10, fu11 = corners(ch0 + 2)
-        fw00, fw01, fw10, fw11 = corners(ch0 + 3)
-        return ((f00 * hv0 + fv00 * gv0 + f10 * hv1 + fv10 * gv1) * hu0
-                + (f01 * hv0 + fv01 * gv0 + f11 * hv1 + fv11 * gv1) * hu1
-                + (fu00 * hv0 + fw00 * gv0 + fu10 * hv1 + fw10 * gv1) * gu0
-                + (fu01 * hv0 + fw01 * gv0 + fu11 * hv1 + fw11 * gv1) * gu1)
-
-    gx = hermite(1)
-    gy = hermite(5)
-    return n, gx, gy
-
-
-def _supercell_nag(tbl, bix, biy, meta):
-    """n/grad from a per-ray 4x4 Hermite node block held in VMEM.
-
-    ``tbl`` is the (144, rows, 128) node-block value — channel index
-    ``(a*4 + b) * 9 + ch`` for node (a, b) of the ray's supercell and the
-    media/hermite.py channel layout.  ``bix``/``biy`` are the block's base
-    node indices (f32 vectors).  The evaluation is the same bicubic Hermite
-    as HermiteGridMedium.n_and_grad with the HBM gather replaced by 24
-    selects per channel over the carried block — rays stay within the block
-    for a whole kernel segment by construction (segment_steps * ds < cell).
-    """
-    x0, y0, inv_hx, inv_hy, nx, ny = meta
-
-    def nag(x, y):
-        fx = jnp.clip((x - x0) * inv_hx, 0.0, float(nx - 1))
-        fy = jnp.clip((y - y0) * inv_hy, 0.0, float(ny - 1))
-        ix = jnp.minimum(jnp.floor(fx), float(nx - 2))
-        iy = jnp.minimum(jnp.floor(fy), float(ny - 2))
-        u = fx - ix
-        v = fy - iy
-        a0 = jnp.clip(iy - biy, 0.0, 2.0)   # block-relative cell corner
-        b0 = jnp.clip(ix - bix, 0.0, 2.0)
-        a_is0 = a0 == 0.0
-        a_is1 = a0 == 1.0
-        b_is0 = b0 == 0.0
-        b_is1 = b0 == 1.0
-
-        def node(a, b, ch):
-            return tbl[(a * 4 + b) * 9 + ch]
-
-        def corners(ch):
-            """2x2 corner values of channel ch at the per-lane (a0, b0)."""
-            # row-resolve: lo = row a0, hi = row a0+1, per column
-            lo = [jnp.where(a_is0, node(0, b, ch),
-                            jnp.where(a_is1, node(1, b, ch), node(2, b, ch)))
-                  for b in range(4)]
-            hi = [jnp.where(a_is0, node(1, b, ch),
-                            jnp.where(a_is1, node(2, b, ch), node(3, b, ch)))
-                  for b in range(4)]
-
-            def colsel(r):
-                c0 = jnp.where(b_is0, r[0], jnp.where(b_is1, r[1], r[2]))
-                c1 = jnp.where(b_is0, r[1], jnp.where(b_is1, r[2], r[3]))
-                return c0, c1
-
-            c00, c01 = colsel(lo)
-            c10, c11 = colsel(hi)
-            return c00, c01, c10, c11
-
-        return _hermite_blend(corners, u, v)
-
-    return nag
-
-
-def _tile_nag(T, bix, biy, meta, tw_dyn=None, cell_ch: int = 36):
-    """n/grad gathered from a ray-block-shared per-CELL window in VMEM.
-
-    ``T`` is a list of (rows, LANES) values — one per (chunk, channel) with
-    channel index ``chunk * 36 + ch * 4 + corner`` — holding a
-    (th, tw)-CELL window of the medium's Hermite table in *per-cell packed*
-    form: every cell carries its own 4 corner nodes x 9 channels (36
-    floats), row-major flattened into 128-lane chunks and broadcast over
-    sublanes (the ``tpu.dynamic_gather`` layout, see ``_strat_nag``).
-    ``bix``/``biy`` are the window's base CELL indices — per-block scalars,
-    or (rows, LANES) f32 vectors in per-ROW window mode (each sublane row
-    gathers from its own window slice, so the local index just subtracts
-    that row's base; see ``_make_kernel(row_tile=True)``).
-
-    The 4x corner duplication buys the hot path: one flat *cell* index per
-    evaluation, so a <=128-cell window needs exactly 36 gathers and ZERO
-    chunk selects per step (the node-layout alternative costs 4 corner
-    indices x nchunks gathers + selects for 1/4 the capacity per chunk).
-    The window is shared by the whole ray block, so the between-segment
-    refresh is one coherent slice per *block* rather than 144 floats
-    gathered per *ray* (the wall that held the supercell path at 0.06 G).
-    Containment (every ray's cell inside the window for a whole segment) is
-    the caller's contract, verified by the overflow flag in
-    engine/segmented._tiled_run_segments.
-
-    ``tw_dyn``: per-block window WIDTH as a runtime scalar (SMEM bases
-    column 2) — block mode passes it so one compiled kernel serves every
-    shape of an oriented set (engine/segmented._window_bases ``shapes``);
-    the local flat index is exact in f32 (ly*tw + lx < 1024 << 2^24).
-    ``None`` (row-window mode) folds the static ``tw`` instead.
-
-    ``cell_ch``: floats per packed cell — 36 for the parity Hermite form
-    (9 node channels x 4 corners, ``_hermite_blend``), 16 for the
-    consistent-gradient C1 form (4 channels x 4 corners, ``media.c1
-    .c1_blend``: n and grad n from ONE spline patch — 16/36 the gathers
-    per step and refresh bytes).
-    """
-    x0, y0, inv_hx, inv_hy, nx, ny, th, tw = meta
-    twf = float(tw) if tw_dyn is None else tw_dyn
-    nchunks = (len(T) + cell_ch - 1) // cell_ch
-
-    def nag(x, y):
-        fx = jnp.clip((x - x0) * inv_hx, 0.0, float(nx - 1))
-        fy = jnp.clip((y - y0) * inv_hy, 0.0, float(ny - 1))
-        ix = jnp.minimum(jnp.floor(fx), float(nx - 2))
-        iy = jnp.minimum(jnp.floor(fy), float(ny - 2))
-        u = fx - ix
-        v = fy - iy
-        lx = ix - bix          # in [0, tw-1] by the containment contract
-        ly = iy - biy
-        t = (ly * twf + lx).astype(jnp.int32)
-        if nchunks == 1:
-            lane = t
-
-            def corners(ch):
-                return tuple(
-                    jnp.take_along_axis(T[ch * 4 + c], lane, axis=1)
-                    for c in range(4))
-        else:
-            lane = jnp.bitwise_and(t, jnp.int32(LANES - 1))
-            chk = jnp.right_shift(t, jnp.int32(7))
-
-            def corners(ch):
-                out = []
-                for c in range(4):
-                    val = jnp.zeros_like(x)
-                    for k in range(nchunks):
-                        g = jnp.take_along_axis(T[k * cell_ch + ch * 4 + c],
-                                                lane, axis=1)
-                        val = jnp.where(chk == k, g, val)
-                    out.append(val)
-                return tuple(out)
-
-        if cell_ch == 16:
-            from raytracing_tpu.media.c1 import c1_blend
-            return c1_blend(corners, u, v, inv_hx, inv_hy)
-        return _hermite_blend(corners, u, v)
-
-    return nag
-
-
-def strat_tables(medium, rows: int):
-    """Pack a 1-D stratified medium into the kernels' channel-table layout.
-
-    Returns (tables, strat_meta, nch): tables is (C, NCH, rows, 128) as
-    128-entry lane chunks replicated over sublanes (the dynamic_gather
-    layout, see `_strat_nag`); strat_meta is the (y0, inv_hy, ny) literal
-    tuple for `_make_kernel(strat=...)`.  C = 6 for the parity
-    StratifiedGridMedium (channels Zy[i], Zy[i+1], cy[i, 0..3]); C = 4 for
-    the consistent-gradient C1StratifiedMedium (channels cn[i, 0..3] — one
-    cubic serves n AND dn/dy, media/c1.py).  The ONE definition shared by
-    the fused, golden, and segmented wrappers.
+    Returns (tables, strat_meta): tables is the flat channel-major
+    (C * ny,) float32 array :func:`_strat_nag` gathers from; strat_meta is
+    the (y0, inv_hy, ny) literal tuple for ``_make_kernel(strat=...)``.
+    C = 6 for the parity StratifiedGridMedium (channels Zy[i], Zy[i+1],
+    cy[i, 0..3]); C = 4 for the consistent-gradient C1StratifiedMedium
+    (channels cn[i, 0..3] — one cubic serves n AND dn/dy, media/c1.py).
+    The ONE definition shared by the fused, golden, dynamic and segmented
+    wrappers.
     """
     ny = medium.ny
-    nch = -(-ny // LANES)
-    T = nch * LANES
     if hasattr(medium, "cn"):            # C1StratifiedMedium
-        cpad = jnp.pad(jnp.asarray(medium.cn, jnp.float32),
-                       ((0, T - ny + 1), (0, 0)))
-        tables = jnp.stack([cpad[:, 0], cpad[:, 1], cpad[:, 2], cpad[:, 3]])
-        chans = 4
+        cpad = jnp.pad(jnp.asarray(medium.cn, jnp.float32), ((0, 1), (0, 0)))
+        chans = [cpad[:, 0], cpad[:, 1], cpad[:, 2], cpad[:, 3]]
     else:
         zy = jnp.asarray(medium.Zy, jnp.float32)
         cy = jnp.asarray(medium.cy, jnp.float32)
-        zlo = jnp.pad(zy, (0, T - ny), mode="edge")
-        zhi = jnp.pad(zy[1:], (0, T - ny + 1), mode="edge")
-        cpad = jnp.pad(cy, ((0, T - ny + 1), (0, 0)))
-        tables = jnp.stack([zlo, zhi, cpad[:, 0], cpad[:, 1], cpad[:, 2],
-                            cpad[:, 3]])
-        chans = 6
-    tables = jnp.broadcast_to(tables.reshape(chans, nch, 1, LANES),
-                              (chans, nch, rows, LANES))
+        zhi = jnp.pad(zy[1:], (0, 1), mode="edge")
+        cpad = jnp.pad(cy, ((0, 1), (0, 0)))
+        chans = [zy, zhi, cpad[:, 0], cpad[:, 1], cpad[:, 2], cpad[:, 3]]
+    tables = jnp.concatenate(chans)
     strat = (float(medium.y0), float(medium.inv_hy), int(ny))
-    return tables, strat, nch
+    return tables, strat
 
 
 def _custom_nag(medium):
     """nag from a user CustomMedium: n_and_grad inlined into the kernel.
 
     The user's ``n_fn`` (and autodiff jvp when no ``grad_fn`` is given) must
-    consist of Mosaic-lowerable elementwise jnp ops — true for ordinary
-    closed-form fields; exotic primitives surface as Mosaic compile errors,
-    in which case the scan engine remains the fallback.
+    consist of elementwise jnp ops the Triton route lowers — true for
+    ordinary closed-form fields; exotic primitives surface as lowering
+    errors, and the scan engine (``engine/trace.py``) runs any such field.
     """
     def nag(x, y):
         n, (gx, gy) = medium.n_and_grad(x, y)
@@ -335,9 +137,7 @@ def _custom_nag(medium):
 
 def _make_kernel(field: str, op: str, steps: int, box, curv_tol: float = 0.0,
                  strat=None, stats: bool = False, resume: bool = False,
-                 supercell=None, custom=None, tile=None, skip: bool = False,
-                 per_block_scal: bool = False, row_tile: bool = False,
-                 tile_channels: int = 36):
+                 custom=None, skip: bool = False):
     """Build the fused step kernel.
 
     ``stats`` adds a Welford tracker of the horizontal momentum m_x = n*u_x
@@ -349,31 +149,23 @@ def _make_kernel(field: str, op: str, steps: int, box, curv_tol: float = 0.0,
     ``resume`` makes the kernel *segmentable*: it reads the FULL integration
     state (incl. Kahan compensations, accumulators, the op7 window) from
     input refs and writes it back, with a global step offset in the scalar
-    bundle — so an outer loop can chain bounded-trip-count launches.  This
-    bounds Mosaic's compile time (which scales with the fori_loop trip
-    count) and is the hook for live-ray compaction between segments.
+    bundle — so an outer loop can chain bounded-trip-count launches
+    (engine/segmented.py) and compact live rays between segments.
 
-    ``skip`` (resume only) prepends a per-block liveness table (SMEM,
-    (nblocks,) f32): a block whose entry is 0 — every lane frozen by
-    boundary exit or the step limit — bypasses the whole step loop and
-    copies its state through (``pl.when``).  With launch batches ordered
-    so rays that exit together sit in the same block (e.g. the interface
-    fan sorted by angle), frozen blocks cost only their state DMA — the
-    device-side answer to the reference's data-dependent break
-    (RT_bench.py:878-879) without any host round-trip.
-
-    ``per_block_scal`` (resume only) makes the scalar bundle a PER-BLOCK
-    table: ``ds_ref`` is (nblocks, 3) and each block reads its own
-    (delta_s, limit, offset) row — so one launch integrates a different
-    step size per block.  This is what batches a whole DELTA_S candidate
-    sweep over the grid medium into single kernel launches (one candidate
-    per block, each with its own window AND its own step).
+    ``skip`` (resume only) prepends a per-program liveness flag (a (1,)
+    block of the table from ``launch.program_flags``): a program whose flag
+    is 0 — every ray frozen by boundary exit or the step limit — bypasses
+    the whole step loop and copies its state through (``pl.when``).  With
+    launch batches ordered so rays that exit together sit in the same
+    program (e.g. the interface fan sorted by angle), frozen programs cost
+    only their state copy — the device-side answer to the reference's
+    data-dependent break (RT_bench.py:878-879) without a host round-trip.
     """
-    if (skip or per_block_scal) and not resume:
-        raise ValueError("skip/per_block_scal are resume-kernel features")
+    if skip and not resume:
+        raise ValueError("skip is a resume-kernel feature")
     if custom is not None:
         nag = _custom_nag(custom)
-    elif strat is not None or supercell is not None or tile is not None:
+    elif strat is not None:
         nag = None
     else:
         nag = _field_fn(field)
@@ -392,40 +184,28 @@ def _make_kernel(field: str, op: str, steps: int, box, curv_tol: float = 0.0,
             live_ref, refs = refs[0], refs[1:]
         if resume:
             n_in = 9 + (3 if stats else 0) + (4 if window else 0)
-            in_refs, zero_ref, ds_ref = refs[:n_in], refs[n_in], refs[n_in + 1]
-            out_refs = refs[n_in + 2:]
+            in_refs, ds_ref = refs[:n_in], refs[n_in]
+            out_refs = refs[n_in + 1:]
             vals = [r[...] for r in in_refs]
             x, y, ux, uy, cx, cy, tt, dsim, active = vals[:9]
             extra0 = tuple(vals[9:])
-            zero = zero_ref[...]
-            if per_block_scal:
-                _b = pl.program_id(0)
-                # this block's scalar row (direct 2-D reads: Mosaic's SMEM
-                # sub-ref view .at[b] crashes its compiler)
-                ds = ds_ref[_b, 0]
-                limit = ds_ref[_b, 1]
-                offset = ds_ref[_b, 2]
-            else:
-                offset = ds_ref[2]  # applied steps before this segment
+            zero = jnp.zeros_like(x)
+            offset = ds_ref[2]  # applied steps before this segment
         else:
-            (x_ref, y_ref, ux_ref, uy_ref, zero_ref, ds_ref), out_refs = \
-                refs[:6], refs[6:]
+            (x_ref, y_ref, ux_ref, uy_ref, ds_ref), out_refs = \
+                refs[:5], refs[5:]
             x, y = x_ref[...], y_ref[...]
             ux, uy = ux_ref[...], uy_ref[...]
-            # Accumulator inits come from a loaded zeros buffer, not
-            # jnp.zeros_like: constant zeros get a replicated vector layout
-            # that Mosaic cannot reconcile with loop-carried select results.
-            zero = zero_ref[...]
+            zero = jnp.zeros_like(x)
             cx = zero
             cy = zero
             tt = zero
             dsim = zero
-            active = zero + 1.0  # f32 mask: Mosaic can't carry i1 in scf.for
+            active = zero + 1.0  # f32 mask, shared with the resume layout
             offset = 0.0
             extra0 = None
-        if not per_block_scal:
-            ds = ds_ref[0]
-            limit = ds_ref[1]  # effective steps (traced); rays freeze after
+        ds = ds_ref[0]
+        limit = ds_ref[1]  # effective steps (traced); rays freeze after
 
         def body(i, carry):
             if resume:
@@ -448,8 +228,7 @@ def _make_kernel(field: str, op: str, steps: int, box, curv_tol: float = 0.0,
                 # Rotations use degree-5 small-angle polynomials: the
                 # increments are O(ds * curvature), so the d^5/120 truncation
                 # sits below float32 eps for any practical step — and chains
-                # of real sin/cos here sent the Mosaic compiler into a
-                # pathological (>40 min) compile.
+                # of real sin/cos cost far more than these few mul-adds.
                 def rot(ax, ay, d):
                     d2 = d * d
                     s = d * (1.0 - d2 * (1.0 / 6.0) * (1.0 - d2 * 0.05))
@@ -541,9 +320,8 @@ def _make_kernel(field: str, op: str, steps: int, box, curv_tol: float = 0.0,
                 # Degree-5 small-angle polynomials instead of cos/sin (the
                 # RK4/curvature paths' trick): the increments are
                 # O(ds * curvature), so the d^5/120 truncation sits below
-                # f32 noise at any practical step — and the two VPU
-                # transcendental pairs per step were the RK2 family's cost
-                # ceiling (op6/HySA measured 12 -> ~30 G without them).
+                # f32 noise at any practical step, and the step needs no
+                # transcendental pairs.
                 def rot(ax, ay, d):
                     d2 = d * d
                     s = d * (1.0 - d2 * (1.0 / 6.0) * (1.0 - d2 * 0.05))
@@ -569,8 +347,7 @@ def _make_kernel(field: str, op: str, steps: int, box, curv_tol: float = 0.0,
                 nux = jnp.where(significant, nux, ux)
                 nuy = jnp.where(significant, nuy, uy)
 
-            # first-order steps move exactly ds; avoid materializing a
-            # replicated `dist` vector (Mosaic relayout bug in selects)
+            # first-order steps move exactly ds
             if second_order or curvature or rk4:
                 dist = jnp.sqrt(ddx * ddx + ddy * ddy)
                 ntt = tt + dist * (n + n2) * 0.5
@@ -630,82 +407,25 @@ def _make_kernel(field: str, op: str, steps: int, box, curv_tol: float = 0.0,
                 ref[...] = val
 
         if skip:
-            block_live = live_ref[pl.program_id(0)] > 0.5
+            block_live = live_ref[0] > 0.5
             pl.when(block_live)(integrate)
 
             @pl.when(jnp.logical_not(block_live))
             def _passthrough():
-                # every lane frozen: state rides through unchanged
+                # every ray frozen: state rides through unchanged
                 for ref, val in zip(out_refs, vals):
                     ref[...] = val
         else:
             integrate()
 
-    if supercell is not None:
-        if not resume:
-            raise ValueError("supercell kernels are segment-resumable only")
-
-        def kernel(nodes_ref, bix_ref, biy_ref, *refs):
-            kernel_impl(_supercell_nag(nodes_ref[...], bix_ref[...],
-                                       biy_ref[...], supercell), *refs)
-    elif tile is not None:
-        if not resume:
-            raise ValueError("tiled grid kernels are segment-resumable only")
-        if row_tile:
-            # Per-sublane-ROW windows: ``tpu.dynamic_gather`` indexes each
-            # sublane row independently, so giving every row of 128
-            # Morton-adjacent rays its OWN <=128-cell window covers
-            # rows x 128 cells per block at single-chunk cost — the same
-            # 36 gathers/step a (11, 11) block window needs, where the
-            # equivalent block-window coverage (32x32 cells) pays
-            # 8 chunks x 36 gathers plus selects.  tile_ref block is
-            # (36, 1, rows, LANES), CHANNEL-major — the refresh's plane
-            # gather writes that layout directly, with no 143 MB/refresh
-            # transpose (engine/segmented._refresh_windows_rows) — and the
-            # window bases ride along as (1, 2, rows, LANES)
-            # lane-broadcast vectors (SMEM would need an in-kernel
-            # scalar->vector row build, which Mosaic rejects below
-            # (8, 128)).
-            if tile_channels != 36:
-                raise ValueError("row windows support the 36-channel parity "
-                                 "form only")
-
-            def kernel(tile_ref, base_ref, *refs):
-                tv = tile_ref[...]
-                bb = base_ref[...]
-                T = [tv[i, 0] for i in range(36)]
-                kernel_impl(_tile_nag(T, bb[0, 0], bb[0, 1], tile), *refs)
-        else:
-            n_ch = (-(-tile[6] * tile[7] // LANES)) * tile_channels
-
-            def kernel(tile_ref, base_ref, *refs):
-                rows = refs[0].shape[0]
-                tv = tile_ref[0]
-                # hoist the sublane broadcasts out of the step loop: the
-                # tile is loop-invariant, so each (chunk, channel) row
-                # becomes one (rows, LANES) value the per-step gathers
-                # index into
-                T = [jnp.broadcast_to(tv[i:i + 1, :], (rows, LANES))
-                     for i in range(n_ch)]
-                # base_ref is the FULL (nblocks, 4) SMEM table of
-                # (bix, biy, tw, th) rows (Mosaic rejects sub-(8, 128)
-                # blocked specs); pick this block's row by grid id.  The
-                # per-block tw makes the kernel shape-agnostic within its
-                # chunk class — oriented windows need no recompile.
-                b = pl.program_id(0)
-                kernel_impl(
-                    _tile_nag(T, base_ref[b, 0], base_ref[b, 1], tile,
-                              tw_dyn=base_ref[b, 2],
-                              cell_ch=tile_channels),
-                    *refs)
-    elif strat is None:
+    if strat is None:
         def kernel(*refs):
             kernel_impl(nag, *refs)
     else:
         y0, inv_hy, ny = strat
 
         def kernel(tables_ref, *refs):
-            kernel_impl(_strat_nag(tables_ref[...], y0, inv_hy, ny), *refs)
+            kernel_impl(_strat_nag(tables_ref, y0, inv_hy, ny), *refs)
 
     return kernel
 
@@ -723,44 +443,35 @@ class FusedFinal(NamedTuple):
     mom_m2: Any = None
 
 
-def _call_kernel(kernel, tables, x, y, ux, uy, ds, *, steps, r, rows,
-                 block_rays, nch, with_stats, interpret):
-    shape2 = (r // LANES, LANES)
-    blk = pl.BlockSpec((rows, LANES), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
+def _call_kernel(kernel, tables, x, y, ux, uy, ds, *, with_stats, interpret,
+                 name):
     n_out = 10 if with_stats else 7
-    in_specs = [blk, blk, blk, blk, blk,
-                pl.BlockSpec(memory_space=pltpu.SMEM)]
-    args = (x, y, ux, uy, jnp.zeros(shape2, jnp.float32), ds)
-    if tables is not None:
-        in_specs = [pl.BlockSpec((tables.shape[0], nch, rows, LANES),
-                                 lambda i: (0, 0, 0, 0),
-                                 memory_space=pltpu.VMEM)] + in_specs
-        args = (tables,) + args
-    outs = pl.pallas_call(
-        kernel,
-        grid=(r // block_rays,),
-        in_specs=in_specs,
-        out_specs=[blk] * n_out,
-        out_shape=[jax.ShapeDtypeStruct(shape2, jnp.float32)] * n_out,
-        cost_estimate=pl.CostEstimate(
-            flops=(60 + 30 * (nch or 0)) * r * steps,
-            bytes_accessed=16 * 4 * r,
-            transcendentals=3 * r * steps),
-        interpret=interpret,
-    )(*args)
+    outs = ray_block_call(kernel, [x, y, ux, uy], ds, n_out,
+                          tables=() if tables is None else (tables,),
+                          interpret=interpret, name=name)
     fx, fy, fux, fuy, tt, dsim, act = outs[:7]
     res = FusedFinal(
-        pos=jnp.stack([fx.reshape(-1), fy.reshape(-1)], axis=-1),
-        tangent=jnp.stack([fux.reshape(-1), fuy.reshape(-1)], axis=-1),
-        traveltime=tt.reshape(-1), dist_sim=dsim.reshape(-1),
-        active=act.reshape(-1) > 0.5)
+        pos=jnp.stack([fx, fy], axis=-1),
+        tangent=jnp.stack([fux, fuy], axis=-1),
+        traveltime=tt, dist_sim=dsim, active=act > 0.5)
     if with_stats:
         cnt, mean, m2 = outs[7:]
-        res = res._replace(mom_count=cnt.reshape(-1),
-                           mom_mean=mean.reshape(-1),
-                           mom_m2=m2.reshape(-1))
+        res = res._replace(mom_count=cnt, mom_mean=mean, mom_m2=m2)
     return res
+
+
+def _launch_state(pos0, theta0, delta_s, step_limit, steps, r, block_rays):
+    """Flat (R,) launch components + the (delta_s, limit) scalar bundle."""
+    if r % block_rays:
+        raise ValueError(f"rays {r} not a multiple of block {block_rays}")
+    theta0 = jnp.asarray(theta0, jnp.float32)
+    x = jnp.asarray(pos0[:, 0], jnp.float32)
+    y = jnp.asarray(pos0[:, 1], jnp.float32)
+    if step_limit is None:
+        step_limit = steps
+    ds = jnp.stack([jnp.asarray(delta_s, jnp.float32),
+                    jnp.asarray(step_limit, jnp.float32)])
+    return x, y, jnp.cos(theta0), jnp.sin(theta0), ds
 
 
 @functools.partial(jax.jit, static_argnames=("field", "op", "steps", "box",
@@ -768,7 +479,7 @@ def _call_kernel(kernel, tables, x, y, ux, uy, ds, *, steps, r, rows,
                                              "with_stats"))
 def fused_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
                       steps: int, box, block_rays: int = 4096,
-                      interpret: bool = False, step_limit=None,
+                      interpret: bool | None = None, step_limit=None,
                       with_stats: bool = False) -> FusedFinal:
     """Run ``steps`` fused integration steps; return a :class:`FusedFinal`.
 
@@ -782,25 +493,14 @@ def fused_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
         raise ValueError(f"fused kernel supports fields {FUSED_FIELDS}, got {field!r}")
     if op not in FUSED_OPS:
         raise ValueError(f"fused kernel supports ops {FUSED_OPS}, got {op!r}")
-    r = pos0.shape[0]
-    if r % block_rays:
-        raise ValueError(f"rays {r} not a multiple of block {block_rays}")
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
-    x = pos0[:, 0].reshape(shape2)
-    y = pos0[:, 1].reshape(shape2)
-    ux = jnp.cos(theta0).reshape(shape2)
-    uy = jnp.sin(theta0).reshape(shape2)
-    if step_limit is None:
-        step_limit = steps
-    ds = jnp.stack([jnp.asarray(delta_s, jnp.float32),
-                    jnp.asarray(step_limit, jnp.float32)])
+    x, y, ux, uy, ds = _launch_state(pos0, theta0, delta_s, step_limit,
+                                     steps, pos0.shape[0], block_rays)
     from raytracing_tpu.config import gold_tol
     kernel = _make_kernel(field, op, steps, box, gold_tol(np.float32),
                           stats=with_stats)
-    return _call_kernel(kernel, None, x, y, ux, uy, ds, steps=steps, r=r,
-                        rows=rows, block_rays=block_rays, nch=0,
-                        with_stats=with_stats, interpret=interpret)
+    return _call_kernel(kernel, None, x, y, ux, uy, ds,
+                        with_stats=with_stats, interpret=interpret,
+                        name=f"fused_{op}_{field}")
 
 
 @functools.partial(jax.jit, static_argnames=("medium", "op", "steps", "box",
@@ -808,37 +508,26 @@ def fused_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
                                              "with_stats"))
 def fused_trace_final_custom(pos0, theta0, delta_s, *, medium, op: str,
                              steps: int, box, block_rays: int = 4096,
-                             interpret: bool = False, step_limit=None,
+                             interpret: bool | None = None, step_limit=None,
                              with_stats: bool = False) -> FusedFinal:
     """Fused integration through a user-defined :class:`CustomMedium`.
 
     The reference requires editing its source to add a medium
-    (RT_bench.py:104-116, 1567-1580); here any Mosaic-lowerable elementwise
-    ``n(x, y)`` runs at kernel speed, gradient by forward-mode autodiff
-    inlined into the Pallas step body.  Same contract as
+    (RT_bench.py:104-116, 1567-1580); here any elementwise ``n(x, y)`` the
+    Triton route lowers runs at kernel speed, gradient by forward-mode
+    autodiff inlined into the step body.  Same contract as
     :func:`fused_trace_final`.
     """
     if op not in FUSED_OPS:
         raise ValueError(f"fused kernel supports ops {FUSED_OPS}, got {op!r}")
-    r = pos0.shape[0]
-    if r % block_rays:
-        raise ValueError(f"rays {r} not a multiple of block {block_rays}")
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
-    x = jnp.asarray(pos0[:, 0], jnp.float32).reshape(shape2)
-    y = jnp.asarray(pos0[:, 1], jnp.float32).reshape(shape2)
-    ux = jnp.cos(theta0).astype(jnp.float32).reshape(shape2)
-    uy = jnp.sin(theta0).astype(jnp.float32).reshape(shape2)
-    if step_limit is None:
-        step_limit = steps
-    ds = jnp.stack([jnp.asarray(delta_s, jnp.float32),
-                    jnp.asarray(step_limit, jnp.float32)])
+    x, y, ux, uy, ds = _launch_state(pos0, theta0, delta_s, step_limit,
+                                     steps, pos0.shape[0], block_rays)
     from raytracing_tpu.config import gold_tol
     kernel = _make_kernel("custom", op, steps, box, gold_tol(np.float32),
                           stats=with_stats, custom=medium)
-    return _call_kernel(kernel, None, x, y, ux, uy, ds, steps=steps, r=r,
-                        rows=rows, block_rays=block_rays, nch=0,
-                        with_stats=with_stats, interpret=interpret)
+    return _call_kernel(kernel, None, x, y, ux, uy, ds,
+                        with_stats=with_stats, interpret=interpret,
+                        name=f"fused_{op}_custom")
 
 
 @functools.partial(jax.jit, static_argnames=("op", "steps", "box",
@@ -846,38 +535,25 @@ def fused_trace_final_custom(pos0, theta0, delta_s, *, medium, op: str,
                                              "with_stats"))
 def fused_trace_final_strat(pos0, theta0, delta_s, medium, *, op: str,
                             steps: int, box, block_rays: int = 4096,
-                            interpret: bool = False, step_limit=None,
+                            interpret: bool | None = None, step_limit=None,
                             with_stats: bool = False) -> FusedFinal:
     """Fused integration through a sampled stratified medium.
 
-    The TPU-viable production path for the reference's grid/spline media on
-    x-independent fields (interface / vert): the 1-D cell tables of a
-    ``media.spline.StratifiedGridMedium`` ride in VMEM as lane chunks and the
-    kernel gathers n / dn/dy per step with ``tpu.dynamic_gather`` — the
-    Pallas-tier replacement for the three FITPACK evaluations per step that
-    dominate the reference's hot loop (RT_bench.py:435-464, 141-156).
+    The kernel path for the reference's grid/spline media on x-independent
+    fields (interface / vert): the 1-D cell tables of a
+    ``media.spline.StratifiedGridMedium`` stay in device memory and the
+    kernel gathers n / dn/dy per ray and step — the replacement for the
+    three FITPACK evaluations per step that dominate the reference's hot
+    loop (RT_bench.py:435-464, 141-156).
     """
     if op not in FUSED_OPS:
         raise ValueError(f"fused kernel supports ops {FUSED_OPS}, got {op!r}")
-    r = pos0.shape[0]
-    if r % block_rays:
-        raise ValueError(f"rays {r} not a multiple of block {block_rays}")
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
-    x = jnp.asarray(pos0[:, 0], jnp.float32).reshape(shape2)
-    y = jnp.asarray(pos0[:, 1], jnp.float32).reshape(shape2)
-    ux = jnp.cos(theta0).astype(jnp.float32).reshape(shape2)
-    uy = jnp.sin(theta0).astype(jnp.float32).reshape(shape2)
-    if step_limit is None:
-        step_limit = steps
-    ds = jnp.stack([jnp.asarray(delta_s, jnp.float32),
-                    jnp.asarray(step_limit, jnp.float32)])
-
-    tables, strat, nch = strat_tables(medium, rows)
-
+    x, y, ux, uy, ds = _launch_state(pos0, theta0, delta_s, step_limit,
+                                     steps, pos0.shape[0], block_rays)
+    tables, strat = strat_tables(medium)
     from raytracing_tpu.config import gold_tol
     kernel = _make_kernel("stratified", op, steps, box, gold_tol(np.float32),
                           strat=strat, stats=with_stats)
-    return _call_kernel(kernel, tables, x, y, ux, uy, ds, steps=steps, r=r,
-                        rows=rows, block_rays=block_rays, nch=nch,
-                        with_stats=with_stats, interpret=interpret)
+    return _call_kernel(kernel, tables, x, y, ux, uy, ds,
+                        with_stats=with_stats, interpret=interpret,
+                        name=f"fused_{op}_strat")

@@ -4,7 +4,7 @@
 Each integration step runs a complete branchless golden-section minimization
 of the momentum-impulse cost (RT_bench.py:573-600, 676-764) *inside* the
 Pallas kernel: bracket state lives in registers, one cost evaluation per
-iteration, everything on the VPU.  The reference pays ~70 scipy-free Python
+iteration, everything in registers.  The reference pays ~70 scipy-free Python
 cost evaluations per ray per step on a CPU; here a million rays step
 together.
 
@@ -27,7 +27,7 @@ cost (moments reduce to n*(cos t, sin t)), so op5/op9 are op10/op11 with
 gamma=1 — one kernel family, four ops (+ the op10n/op11n Newton extensions).
 
 Like ``fused.py``, the kernels optionally gather n / dn/dy from a
-``StratifiedGridMedium``'s VMEM tables (the reference's sampled production
+``StratifiedGridMedium``'s cell tables (the reference's sampled production
 medium) and carry a Welford tracker of the anisotropic horizontal momentum
 m_x (RT_bench.py:957-958) for on-device CV oracles — which is what lets the
 DELTA_S sweep run the aniso scenario at kernel speed.
@@ -42,11 +42,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytracing_tpu.config import DELTA_G, GOLD_RATIO, gold_tol, golden_iters
-from raytracing_tpu.kernels.fused import (LANES, _custom_nag, _field_fn,
-                                          _strat_nag, _tile_nag, strat_tables)
+from raytracing_tpu.kernels.fused import (_custom_nag, _field_fn, _strat_nag,
+                                          strat_tables)
+from raytracing_tpu.kernels.launch import ray_block_call
 
 GOLDEN_OPS = {"op5": ("curv", "golden"), "op9": ("t2", "golden"),
               "op10": ("curv", "golden"), "op11": ("t2", "golden"),
@@ -103,8 +103,8 @@ def _rot_small(d):
 
     Exact Taylor truncations (error d^7/5040 resp. d^6/720): below f32
     roundoff for |d| <~ 0.15, which covers every polish/Newton offset —
-    and dodges two VPU transcendentals per evaluation (the RK2-family
-    trick, kernels/fused.py)."""
+    and dodges two transcendentals per evaluation (the RK2-family trick,
+    kernels/fused.py)."""
     d2 = d * d
     sd = d * (1.0 - d2 * (1.0 / 6.0) * (1.0 - d2 * 0.05))
     cd = 1.0 - d2 * 0.5 * (1.0 - d2 * (1.0 / 12.0))
@@ -137,20 +137,17 @@ def _golden_offsets(iters: int):
 
 def _make_kernel(field: str, op: str, steps: int, box, gold_iters_n: int,
                  curv_tol: float, strat=None, stats: bool = False,
-                 custom=None, resume: bool = False, tile=None,
-                 skip: bool = False, polish: int = 0,
-                 row_tile: bool = False, tile_channels: int = 36):
+                 custom=None, resume: bool = False,
+                 skip: bool = False, polish: int = 0):
     """Build the fused golden/Newton step kernel.
 
     ``resume`` makes the kernel segmentable (mirrors fused._make_kernel):
     the full integration state (Kahan compensations, Welford stats) reads
     from input refs and writes back, with the global step offset at
-    ``scal_ref[3]`` — the hook for the tiled 2-D grid path and bounded
-    compiles.  ``tile`` injects the per-cell window evaluator
-    (fused._tile_nag); tiled kernels are resume-only.  ``skip`` prepends a
-    per-block liveness table and bypasses all-frozen blocks (see
-    fused._make_kernel — the golden search makes skipped work ~40x a
-    fused step, so the bypass pays off even faster here).  ``polish`` adds
+    ``scal_ref[3]`` — the hook for segmented traces (engine/segmented.py).
+    ``skip`` prepends a per-program liveness flag and bypasses all-frozen
+    programs (see fused._make_kernel — the golden search makes skipped work
+    ~40x a fused step, so the bypass pays off even faster here).  ``polish`` adds
     that many Newton steps on the cost gradient after the golden bracket,
     parameterized as a small-angle offset from the bracket midpoint
     (transcendental-free — see GOLD_POLISH).
@@ -159,7 +156,7 @@ def _make_kernel(field: str, op: str, steps: int, box, gold_iters_n: int,
         raise ValueError("skip is a resume-kernel feature")
     if custom is not None:
         nag_analytic = _custom_nag(custom)
-    elif strat is not None or tile is not None:
+    elif strat is not None:
         nag_analytic = None
     else:
         nag_analytic = _field_fn(field)
@@ -184,18 +181,18 @@ def _make_kernel(field: str, op: str, steps: int, box, gold_iters_n: int,
             live_ref, refs = refs[0], refs[1:]
         if resume:
             n_in = 8 + (3 if stats else 0)
-            in_refs, zero_ref, scal_ref = refs[:n_in], refs[n_in], refs[n_in + 1]
-            out_refs = refs[n_in + 2:]
+            in_refs, scal_ref = refs[:n_in], refs[n_in]
+            out_refs = refs[n_in + 1:]
             vals = [rf[...] for rf in in_refs]
             x, y, cx, cy, ang, tt, dsim, active = vals[:8]
             stats0 = tuple(vals[8:])
-            zero = zero_ref[...]
+            zero = jnp.zeros_like(x)
         else:
-            (x_ref, y_ref, ang_ref, zero_ref, scal_ref) = refs[:5]
-            out_refs = refs[5:]
+            (x_ref, y_ref, ang_ref, scal_ref) = refs[:4]
+            out_refs = refs[4:]
             x, y = x_ref[...], y_ref[...]
             ang = ang_ref[...]
-            zero = zero_ref[...]
+            zero = jnp.zeros_like(x)
             cx = zero
             cy = zero
             tt = zero
@@ -478,7 +475,7 @@ def _make_kernel(field: str, op: str, steps: int, box, gold_iters_n: int,
                 rf[...] = val
 
         if skip:
-            block_live = live_ref[pl.program_id(0)] > 0.5
+            block_live = live_ref[0] > 0.5
             pl.when(block_live)(integrate)
 
             @pl.when(jnp.logical_not(block_live))
@@ -488,43 +485,14 @@ def _make_kernel(field: str, op: str, steps: int, box, gold_iters_n: int,
         else:
             integrate()
 
-    if tile is not None:
-        if not resume:
-            raise ValueError("tiled golden kernels are segment-resumable only")
-        if row_tile:
-            if tile_channels != 36:
-                raise ValueError("row windows support the 36-channel parity "
-                                 "form only")
-
-            # per-sublane-row windows — see fused._make_kernel(row_tile=True)
-            def kernel(tile_ref, base_ref, *refs):
-                tv = tile_ref[...]
-                bb = base_ref[...]
-                T = [tv[i, 0] for i in range(36)]
-                kernel_impl(_tile_nag(T, bb[0, 0], bb[0, 1], tile), *refs)
-        else:
-            n_ch = (-(-tile[6] * tile[7] // LANES)) * tile_channels
-
-            def kernel(tile_ref, base_ref, *refs):
-                rows = refs[0].shape[0]
-                tv = tile_ref[0]
-                T = [jnp.broadcast_to(tv[i:i + 1, :], (rows, LANES))
-                     for i in range(n_ch)]
-                b = pl.program_id(0)
-                # (bix, biy, tw, th) SMEM row — see fused._make_kernel
-                kernel_impl(
-                    _tile_nag(T, base_ref[b, 0], base_ref[b, 1], tile,
-                              tw_dyn=base_ref[b, 2],
-                              cell_ch=tile_channels),
-                    *refs)
-    elif strat is None:
+    if strat is None:
         def kernel(*refs):
             kernel_impl(nag_analytic, *refs)
     else:
         y0, inv_hy, ny = strat
 
         def kernel(tables_ref, *refs):
-            kernel_impl(_strat_nag(tables_ref[...], y0, inv_hy, ny), *refs)
+            kernel_impl(_strat_nag(tables_ref, y0, inv_hy, ny), *refs)
 
     return kernel
 
@@ -580,7 +548,7 @@ class GoldenFinal(NamedTuple):
                                              "polish"))
 def golden_trace_final(pos0, theta0, delta_s, gamma, *, field: str, op: str,
                        steps: int, box, block_rays: int = 4096,
-                       interpret: bool = False, medium=None,
+                       interpret: bool | None = None, medium=None,
                        with_stats: bool = False,
                        step_limit=None, gold_iters: int | None = None,
                        polish: int | None = None) -> GoldenFinal:
@@ -602,12 +570,9 @@ def golden_trace_final(pos0, theta0, delta_s, gamma, *, field: str, op: str,
     r = pos0.shape[0]
     if r % block_rays:
         raise ValueError(f"rays {r} not a multiple of block {block_rays}")
-    rows = block_rays // LANES
-    shape2 = (r // LANES, LANES)
-    x = pos0[:, 0].reshape(shape2)
-    y = pos0[:, 1].reshape(shape2)
-    ang = theta0.reshape(shape2).astype(jnp.float32)
-    zero = jnp.zeros(shape2, jnp.float32)
+    x = jnp.asarray(pos0[:, 0], jnp.float32)
+    y = jnp.asarray(pos0[:, 1], jnp.float32)
+    ang = jnp.asarray(theta0, jnp.float32)
 
     iters, polish = golden_schedule(polish, gold_iters)
     tol = gold_tol(np.float32)
@@ -616,9 +581,8 @@ def golden_trace_final(pos0, theta0, delta_s, gamma, *, field: str, op: str,
     scal = golden_scalars(delta_s, gamma, step_limit, 0.0, iters)
 
     strat = None
-    tables = None
+    tables = ()
     custom = None
-    nch = 0
     if medium is not None:
         from raytracing_tpu.media.medium import CustomMedium
         from raytracing_tpu.media.spline import StratifiedGridMedium
@@ -634,42 +598,20 @@ def golden_trace_final(pos0, theta0, delta_s, gamma, *, field: str, op: str,
                              "StratifiedGridMedium/C1StratifiedMedium/"
                              "CustomMedium, got "
                              f"{type(medium).__name__}")
-        tables, strat, nch = strat_tables(medium, rows)
+        table, strat = strat_tables(medium)
+        tables = (table,)
 
-    blk = pl.BlockSpec((rows, LANES), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
     n_out = 9 if with_stats else 6
-    in_specs = [blk, blk, blk, blk, pl.BlockSpec(memory_space=pltpu.SMEM)]
-    args = (x, y, ang, zero, scal)
-    if tables is not None:
-        in_specs = [pl.BlockSpec((tables.shape[0], nch, rows, LANES),
-                                 lambda i: (0, 0, 0, 0),
-                                 memory_space=pltpu.VMEM)] + in_specs
-        args = (tables,) + args
-    outs = pl.pallas_call(
+    outs = ray_block_call(
         _make_kernel(field, op, steps, tuple(box), iters, tol, strat=strat,
                      stats=with_stats, custom=custom, polish=polish),
-        grid=(r // block_rays,),
-        in_specs=in_specs,
-        out_specs=[blk] * n_out,
-        out_shape=[jax.ShapeDtypeStruct(shape2, jnp.float32)] * n_out,
-        cost_estimate=pl.CostEstimate(
-            # bracket iterations ~45 flops each; a Newton polish step costs
-            # ~4 cost evaluations through the nested jvp (~180 flops); the
-            # closed-form seed itself is ~20
-            flops=(170 + 45 * iters + 180 * polish + 30 * nch) * r * steps,
-            bytes_accessed=16 * 4 * r,
-            transcendentals=8 * r * steps),
-        interpret=interpret,
-    )(*args)
+        [x, y, ang], scal, n_out, tables=tables, interpret=interpret,
+        name=f"golden_{op}")
     fx, fy, fang, tt, dsim, act = outs[:6]
     res = GoldenFinal(
-        pos=jnp.stack([fx.reshape(-1), fy.reshape(-1)], axis=-1),
-        angle=fang.reshape(-1), traveltime=tt.reshape(-1),
-        dist_sim=dsim.reshape(-1), active=act.reshape(-1) > 0.5)
+        pos=jnp.stack([fx, fy], axis=-1), angle=fang, traveltime=tt,
+        dist_sim=dsim, active=act > 0.5)
     if with_stats:
         cnt, mean, m2 = outs[6:]
-        res = res._replace(mom_count=cnt.reshape(-1),
-                           mom_mean=mean.reshape(-1),
-                           mom_m2=m2.reshape(-1))
+        res = res._replace(mom_count=cnt, mom_mean=mean, mom_m2=m2)
     return res

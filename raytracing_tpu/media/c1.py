@@ -15,8 +15,7 @@ from it — n = S, grad n = the exact analytic derivative of S.  Momentum
 conservation then holds at the medium level again, and the evaluation
 needs only the 16 numbers of one spline patch per cell instead of the
 parity form's 36 independent floats (4 bilinear corners + 16 + 16
-gradient-spline coefficients) — 16/36 the gather traffic and window
-refresh bytes on the kernel tier.
+gradient-spline coefficients) — 16/36 the gather traffic.
 
 These media deliberately DIVERGE from reference parity (documented in
 docs/PARITY.md): n is the bicubic interpolant of Z rather than the
@@ -28,8 +27,7 @@ the reference bit-for-bit; use these for production accuracy/conservation.
 
 Layout mirrors media/hermite.py: per-NODE Hermite data of S —
 ``(f, f_v, f_u, f_vu)`` in cell-normalized units, 4 channels/node (the
-parity Hermite form carries 9) — so the tiled-window kernel machinery
-(engine/segmented) applies with a quarter-size table.
+parity Hermite form carries 9).
 """
 from __future__ import annotations
 
@@ -37,13 +35,11 @@ from typing import Any
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from raytracing_tpu.utils import struct
 
 from raytracing_tpu import config
 from raytracing_tpu.media import grid as _grid
-# _HERM_D: |h10| = |h11| <= 4/27 Hermite tangent-basis extremum — the ONE
-# definition (with its derivation) lives next to the parity bound
-from raytracing_tpu.media.hermite import _HERM_D, _node_data, hermite_basis
+from raytracing_tpu.media.hermite import _node_data, hermite_basis
 
 
 def hermite_dbasis(t):
@@ -70,10 +66,8 @@ def c1_blend(corners, u, v, inv_hx, inv_hy):
 
     ``corners(ch) -> (c00, c01, c10, c11)`` fetches channel ``ch``'s 2x2
     corner node values (c01 = +x neighbor, c10 = +y); how they are fetched
-    — table gathers here, VMEM window gathers in kernels.fused._tile_nag —
-    is the caller's concern.  One shared definition means bit-identical
-    trajectories across the scan and tiled-kernel tiers (the same contract
-    as kernels.fused._hermite_blend for the 9-channel parity form).
+    is the caller's concern (the 2-D medium here, the z-collapsed 3-D
+    patch in media/grid3.py).
     """
     f = corners(0)
     fv = corners(1)
@@ -98,42 +92,6 @@ def c1_blend(corners, u, v, inv_hx, inv_hy):
     return n, gu * inv_hx, gv * inv_hy
 
 
-def c1_blend_h(corners, u, v, inv_hx, inv_hy):
-    """(n, gx, gy, hxx, hxy, hyy) — :func:`c1_blend` plus the Hessian.
-
-    Because the C1 family evaluates n AND grad n from ONE bicubic patch,
-    its Hessian is the exact second derivative of that same patch —
-    symmetric by construction.  One shared definition serves the 2-D
-    dynamic tiled kernel (kernels/dynamic._tile_nag_c1_h) and the 3-D
-    dynamic window evaluator (kernels/dynamic3d._tile_nag3_h, where the
-    z-collapsed tri-Hermite patch is exactly a C1 2-D patch), so kernel
-    and scan-jvp tiers agree to float-accumulation order.
-    """
-    f = corners(0)
-    fv = corners(1)
-    fu = corners(2)
-    fw = corners(3)
-    hv, dv, ddv = hermite_basis(v), hermite_dbasis(v), hermite_d2basis(v)
-    hu, du, ddu = hermite_basis(u), hermite_dbasis(u), hermite_d2basis(u)
-
-    def vblend(basis):
-        p0 = _hermite1((f[0], fv[0], f[2], fv[2]), basis)
-        p1 = _hermite1((f[1], fv[1], f[3], fv[3]), basis)
-        m0 = _hermite1((fu[0], fw[0], fu[2], fw[2]), basis)
-        m1 = _hermite1((fu[1], fw[1], fu[3], fw[3]), basis)
-        return p0, m0, p1, m1
-
-    col = vblend(hv)
-    col_dv = vblend(dv)
-    n = _hermite1(col, hu)
-    gx = _hermite1(col, du) * inv_hx
-    gy = _hermite1(col_dv, hu) * inv_hy
-    hxx = _hermite1(col, ddu) * (inv_hx * inv_hx)
-    hxy = _hermite1(col_dv, du) * (inv_hx * inv_hy)
-    hyy = _hermite1(vblend(ddv), hu) * (inv_hy * inv_hy)
-    return n, gx, gy, hxx, hxy, hyy
-
-
 @struct.dataclass
 class C1GridMedium:
     """2-D sampled medium with grad n == the exact gradient of n.
@@ -151,11 +109,6 @@ class C1GridMedium:
     inv_hy: float = struct.field(pytree_node=False)
     nx: int = struct.field(pytree_node=False)
     ny: int = struct.field(pytree_node=False)
-    #: window-sizing bounds, same semantics as HermiteGridMedium's
-    n_min: float = struct.field(pytree_node=False, default=1.0)
-    g_max: float = struct.field(pytree_node=False, default=0.0)
-    kappa_max: float = struct.field(pytree_node=False, default=0.0)
-
     def _cell(self, x, y):
         fx = (x - self.x0) * self.inv_hx
         fy = (y - self.y0) * self.inv_hy
@@ -166,7 +119,7 @@ class C1GridMedium:
         return ix, iy, fx - ix, fy - iy
 
     def n_and_grad(self, x, y):
-        """Gather-based evaluation (scan tier); kernels carry windows."""
+        """Gather-based evaluation (scan tier)."""
         ix, iy, ux, uy = self._cell(x, y)
         flat = iy * self.nx + ix
         c00 = self.nodes[flat]
@@ -214,78 +167,6 @@ class C1StratifiedMedium:
         return self.n_and_grad(x, y)[0]
 
 
-def c1_kappa_cell_bound(nodes, inv_hx, inv_hy, xp=np):
-    """Rigorous per-cell bound on |grad n| / n for a C1 medium.
-
-    Same role as hermite.kappa_cell_bound (sizes the tiled kernel's
-    drift-predicted window margins), adapted to the single-spline form.
-    Along a v-slice of a cell, dS/du is the cubic-Hermite derivative with
-    data (p0, m0, p1, m1); the chord decomposition
-
-        p'(t) = D + (m0 - D) h10'(t) + (m1 - D) h11'(t),   D = p1 - p0,
-
-    (exact — substitute m0 = m1 = D to check) with |h10'| + |h11'| <= 1 on
-    [0, 1] gives |p'| <= |D| + max(|m0 - D|, |m1 - D|): the chord slope
-    plus the tangents' deviation FROM the chord.  For smooth media the
-    deviation is O(h^2), so the bound tracks the true gradient (the naive
-    basis-extrema bound |h00'| <= 3/2 overestimates ~2.5x and would
-    over-shrink C1 windows).  D, m0, m1 are themselves v-Hermite blends of
-    corner data, bounded by corner maxima with the tangent-pair constant
-    1/4 (max_t (h10 + |h11|) = t(1-t) <= 1/4).  Symmetrically for dS/dv.
-    n's in-cell lower bound subtracts the tangent-channel overshoot from
-    the corner minimum.  ``nodes`` is (ny, nx, 4); pass ``xp=jnp`` for the
-    traced twin used inside engine/segmented's refresh margins.
-    """
-    f, fv, fu, fvu = (nodes[..., k] for k in range(4))
-    q = 0.25
-
-    def cmax(a):
-        a = xp.abs(a)
-        return xp.maximum(xp.maximum(a[:-1, :-1], a[:-1, 1:]),
-                          xp.maximum(a[1:, :-1], a[1:, 1:]))
-
-    def du(a):
-        """SIGNED in-cell +x differences, stacked over the two y-rows."""
-        d = a[:, 1:] - a[:, :-1]
-        return xp.stack([d[:-1, :], d[1:, :]], axis=-1)
-
-    def dv(a):
-        d = a[1:, :] - a[:-1, :]
-        return xp.stack([d[:, :-1], d[:, 1:]], axis=-1)
-
-    def u_edges(a):
-        """``a`` at the cell's x=0 / x=1 edges, stacked over y-rows."""
-        return (xp.stack([a[:-1, :-1], a[1:, :-1]], axis=-1),
-                xp.stack([a[:-1, 1:], a[1:, 1:]], axis=-1))
-
-    def v_edges(a):
-        return (xp.stack([a[:-1, :-1], a[:-1, 1:]], axis=-1),
-                xp.stack([a[1:, :-1], a[1:, 1:]], axis=-1))
-
-    def axis_bound(diff, edges, tan, ttan, val, vtan):
-        Dv = diff(val)            # chord of the value column, per row
-        Dt = diff(vtan)           # chord of the transverse-tangent column
-        Db = xp.abs(Dv).max(-1) + q * xp.abs(Dt).max(-1)
-        t0, t1 = edges(tan)       # tangent columns at the two edges
-        w0, w1 = edges(ttan)
-        dev0 = xp.abs(t0 - Dv).max(-1) + q * xp.abs(w0 - Dt).max(-1)
-        dev1 = xp.abs(t1 - Dv).max(-1) + q * xp.abs(w1 - Dt).max(-1)
-        return Db + xp.maximum(dev0, dev1)
-
-    gu = axis_bound(du, u_edges, fu, fvu, f, fv)
-    gv = axis_bound(dv, v_edges, fv, fvu, f, fu)
-    g = xp.sqrt((gu * inv_hx) ** 2 + (gv * inv_hy) ** 2)
-
-    f0 = nodes[..., 0]
-    nmin_c = xp.minimum(xp.minimum(f0[:-1, :-1], f0[:-1, 1:]),
-                        xp.minimum(f0[1:, :-1], f0[1:, 1:]))
-    overshoot = (_HERM_D * (cmax(fv) + cmax(fu))
-                 + _HERM_D * _HERM_D * cmax(fvu))
-    nmin_c = xp.maximum(nmin_c - overshoot, 1e-6)
-    kappa = (g / nmin_c).max()
-    return kappa if xp is not np else float(kappa)
-
-
 def _n_spline_cells(Z, y, x, backend: str = "auto"):
     """Per-cell (ncy, ncx, 4, 4) power coefficients of the not-a-knot
     bicubic interpolant of Z itself (float64)."""
@@ -317,15 +198,10 @@ def c1_medium_from_samples(Z, x, y, *, dtype=np.float32,
     nodes = _node_data(np.ascontiguousarray(cells))          # (ny, nx, 4)
     ny, nx = nodes.shape[:2]
     inv_hx, inv_hy = 1.0 / hx, 1.0 / hy
-    g_nodes = np.sqrt((nodes[..., 2] * inv_hx) ** 2
-                      + (nodes[..., 1] * inv_hy) ** 2)
     return C1GridMedium(
         nodes=jnp.asarray(nodes.reshape(ny * nx, 4), dtype),
         x0=float(x[0]), y0=float(y[0]), inv_hx=float(inv_hx),
-        inv_hy=float(inv_hy), nx=nx, ny=ny,
-        n_min=float(max(nodes[..., 0].min(), 1e-6)),
-        g_max=float(g_nodes.max()),
-        kappa_max=c1_kappa_cell_bound(nodes, inv_hx, inv_hy))
+        inv_hy=float(inv_hy), nx=nx, ny=ny)
 
 
 def build_c1_medium(field: str, box, delta: float = config.DELTA,
@@ -340,10 +216,7 @@ def compact_c1_stratified(medium: C1StratifiedMedium, margin: int = 2,
                           ) -> C1StratifiedMedium:
     """Trim a C1 stratified table to its reachable, nontrivial window.
 
-    The C1 twin of media.spline.compact_stratified — without it the C1
-    kernels gather nch x 4 channels over the FULL padded table (interface:
-    6 lane chunks) while the compacted parity form needs one, inverting
-    the 4-vs-6-channel advantage.  Constancy: cells where the cubic is
+    The C1 twin of media.spline.compact_stratified.  Constancy: cells where the cubic is
     flat (c1..c3 ~ 0) and the value matches the edge plateau; reachability
     (``y_range``): rows a boxed ray can never query.  Same contract as the
     parity trim: exact for reachable queries, clamping differs outside.

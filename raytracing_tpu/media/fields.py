@@ -3,7 +3,7 @@
 Mirrors the scenario functions of the reference (RT_bench.py:104-119) and adds
 closed-form gradients — the reference only ever obtains gradients numerically
 through ``np.gradient`` + bicubic splines (RT_bench.py:450-458), whereas the
-TPU build evaluates media two ways: *analytic* (this module — exact, cheap,
+framework evaluates media two ways: *analytic* (this module — exact, cheap,
 branch-free, the fast path for million-ray batches) and *grid/spline*
 (:mod:`raytracing_tpu.media.spline` — bit-parity with the reference).
 

@@ -18,8 +18,7 @@ in cell-normalized units (channel bit k set = one derivative in axis k of
 (u, v, w)).  Inside a cell the tensor-product spline IS the tricubic
 polynomial determined by the 2x2x2 corner nodes' 64 Hermite values, so
 device evaluation is 8 corner gathers + Hermite tensor contractions —
-pure FMAs, vmappable, and the same corner-window shape the tiled 2-D
-kernels carry in VMEM (the planned kernel path, ARCHITECTURE.md).
+pure FMAs and vmappable.
 
 Construction is exact, not approximate: the nodal tangents come from 1-D
 not-a-knot cubic-spline solves along each axis (tensor-product
@@ -34,7 +33,7 @@ from typing import Any
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from raytracing_tpu.utils import struct
 
 from raytracing_tpu.media.c1 import _hermite1, c1_blend, hermite_dbasis
 from raytracing_tpu.media.hermite import hermite_basis
@@ -100,13 +99,6 @@ class C1Grid3Medium:
     nx: int = struct.field(pytree_node=False)
     ny: int = struct.field(pytree_node=False)
     nz: int = struct.field(pytree_node=False)
-    #: diagnostics for step heuristics / future kernel window sizing:
-    #: nodal minimum of n and nodal maximum of |grad n| (NOT rigorous
-    #: in-cell bounds — the 2-D kernels' c1_kappa_cell_bound analog is
-    #: part of the 3-D kernel plan, ARCHITECTURE.md)
-    n_min: float = struct.field(pytree_node=False, default=1.0)
-    g_max: float = struct.field(pytree_node=False, default=0.0)
-
     def _cell(self, x, y, z):
         fx = (x - self.x0) * self.inv_hx
         fy = (y - self.y0) * self.inv_hy
@@ -188,15 +180,10 @@ def c1_medium3_from_samples(F, x, y, z, *, dtype=np.float32) -> C1Grid3Medium:
     """
     F, x, y, z, hx, hy, hz = check_uniform_grid3(F, x, y, z)
     nodes = nodes3_f64(F)
-    fu, fv, fw = nodes[..., 1], nodes[..., 2], nodes[..., 4]
-
     inv_hx, inv_hy, inv_hz = 1.0 / hx, 1.0 / hy, 1.0 / hz
-    g_nodes = np.sqrt((fu * inv_hx) ** 2 + (fv * inv_hy) ** 2
-                      + (fw * inv_hz) ** 2)
     nz_, ny_, nx_ = F.shape
     return C1Grid3Medium(
         nodes=jnp.asarray(nodes.reshape(nz_ * ny_ * nx_, 8), dtype),
         x0=float(x[0]), y0=float(y[0]), z0=float(z[0]),
         inv_hx=float(inv_hx), inv_hy=float(inv_hy), inv_hz=float(inv_hz),
-        nx=nx_, ny=ny_, nz=nz_,
-        n_min=float(max(F.min(), 1e-6)), g_max=float(g_nodes.max()))
+        nx=nx_, ny=ny_, nz=nz_)

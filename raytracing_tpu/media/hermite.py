@@ -6,10 +6,9 @@ corner nodes — the cubic Hermite form.  Converting the per-cell coefficient
 tables of :class:`media.spline.GridMedium` (16 floats/cell/component) to
 per-NODE data (4 floats/node/component) shrinks the fisheye medium from
 ~34 MB to ~9 MB and, crucially, turns the evaluation into *corner-node
-gathers*: a ray only ever needs the 4x4 node block around its current cell,
-which a supercell kernel can carry in VMEM across integration steps
-(kernels/gridfused.py) instead of issuing three HBM spline gathers per step
-(the reference's FITPACK cost, RT_bench.py:435-464, 141-156).
+gathers*: a ray only ever needs the 2x2 corner nodes of its current cell
+instead of three spline evaluations per step (the reference's FITPACK
+cost, RT_bench.py:435-464, 141-156).
 
 Packed channel layout (one row per node, ``(ny*nx, 9)``):
 
@@ -27,7 +26,7 @@ from typing import Any
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from raytracing_tpu.utils import struct
 
 from raytracing_tpu.media.spline import GridMedium
 
@@ -89,19 +88,6 @@ class HermiteGridMedium:
     inv_hy: float = struct.field(pytree_node=False)
     nx: int = struct.field(pytree_node=False)
     ny: int = struct.field(pytree_node=False)
-    #: table-wide bounds for the ray-curvature estimate (sizes the window
-    #: margins in engine/segmented; 0.0 = unknown pre-round-3 pickles,
-    #: consumers fall back to a fixed slack).  ``kappa_max`` is the
-    #: POINTWISE max of |grad n| / n over the nodes — the actual bound on
-    #: |du/ds| = |grad_perp n| / n.  Do NOT reconstruct it as
-    #: g_max / n_min: the factored form pairs extremes from different
-    #: table regions (the reference's +-3 grid padding puts n_min in
-    #: corners no ray visits) and overestimated kappa by 27x on the
-    #: fisheye grid, mis-sizing every coarse-divisor window.
-    n_min: float = struct.field(pytree_node=False, default=1.0)
-    g_max: float = struct.field(pytree_node=False, default=0.0)
-    kappa_max: float = struct.field(pytree_node=False, default=0.0)
-
     def _cell(self, x, y):
         fx = (x - self.x0) * self.inv_hx
         fy = (y - self.y0) * self.inv_hy
@@ -112,8 +98,7 @@ class HermiteGridMedium:
         return ix, iy, fx - ix, fy - iy
 
     def n_and_grad(self, x, y):
-        """Reference (gather-based) evaluation; the supercell kernel is the
-        production path."""
+        """Gather-based evaluation (scan tier)."""
         ix, iy, ux, uy = self._cell(x, y)
         flat = iy * self.nx + ix
         c00 = self.nodes[flat]                    # (..., 9)
@@ -153,46 +138,6 @@ def _hermite2d(c00, c01, c10, c11, v, u):
             + corner(c10, hv1, gv1, hu0, gu0) + corner(c11, hv1, gv1, hu1, gu1))
 
 
-#: max of the 1-D cubic Hermite derivative basis |h10|=|h11| on [0,1]
-#: (attained at t=1/3: t(1-t)^2 = 4/27); the value bases h00+h01
-#: partition unity, so a per-cell interpolant bound needs only corner
-#: maxima of each channel weighted by these
-_HERM_D = 4.0 / 27.0
-
-
-def kappa_cell_bound(nodes):
-    """Rigorous per-CELL bound on |grad n| / n over the whole table.
-
-    The drift-predicted window margins (engine/segmented) need a bound on
-    the ray curvature |du/ds| = |grad_perp n| / n that holds BETWEEN
-    nodes: the bicubic gradient can overshoot its node samples inside a
-    cell (sharp features in a user grid from grid_medium_from_samples),
-    and a node-sampled max would then under-size the sagitta margin —
-    a mid-segment window escape the containment flag cannot see (it
-    re-checks at refresh time, after _tile_nag already gathered wrong
-    cells).  Per cell: |p(u,v)| <= max|f_corner| + 4/27 (max|f_u| +
-    max|f_v|) + (4/27)^2 max|f_uv| from the Hermite basis extrema, n's
-    bilinear minimum is a corner minimum, and each cell pairs ITS OWN
-    gradient bound with ITS OWN n (no cross-table extremes — see the
-    kappa_max field note).  ``nodes`` is (ny, nx, 9) float.
-    """
-    def cmax(a):
-        a = np.abs(a)
-        return np.maximum(np.maximum(a[:-1, :-1], a[:-1, 1:]),
-                          np.maximum(a[1:, :-1], a[1:, 1:]))
-
-    def gbound(ch):                        # ch: (ny, nx, 4) per component
-        return (cmax(ch[..., 0])
-                + _HERM_D * (cmax(ch[..., 1]) + cmax(ch[..., 2]))
-                + _HERM_D * _HERM_D * cmax(ch[..., 3]))
-
-    g = np.sqrt(gbound(nodes[..., 1:5]) ** 2 + gbound(nodes[..., 5:9]) ** 2)
-    n0 = nodes[..., 0]
-    nmin = np.minimum(np.minimum(n0[:-1, :-1], n0[:-1, 1:]),
-                      np.minimum(n0[1:, :-1], n0[1:, 1:]))
-    return float((g / np.maximum(nmin, 1e-6)).max())
-
-
 def build_hermite_medium(gm: GridMedium, dtype=np.float32) -> HermiteGridMedium:
     """Convert a GridMedium's per-cell tables to packed Hermite node form."""
     ny, nx = gm.ny, gm.nx
@@ -202,11 +147,7 @@ def build_hermite_medium(gm: GridMedium, dtype=np.float32) -> HermiteGridMedium:
     nodes[..., 0] = np.asarray(gm.Z, np.float64)
     nodes[..., 1:5] = _node_data(cx)
     nodes[..., 5:9] = _node_data(cy)
-    g_mag = np.sqrt(nodes[..., 1] ** 2 + nodes[..., 5] ** 2)
     return HermiteGridMedium(
         nodes=jnp.asarray(nodes.reshape(ny * nx, 9), dtype),
         x0=gm.x0, y0=gm.y0, inv_hx=gm.inv_hx, inv_hy=gm.inv_hy,
-        nx=nx, ny=ny,
-        n_min=float(max(nodes[..., 0].min(), 1e-6)),
-        g_max=float(g_mag.max()),
-        kappa_max=kappa_cell_bound(nodes))
+        nx=nx, ny=ny)

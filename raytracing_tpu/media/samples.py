@@ -1,19 +1,12 @@
-"""Shared entry points for MEASURED media: one family dispatch, one trim.
+"""Shared entry point for MEASURED media: one family dispatch.
 
-Two pieces of logic used to be duplicated across every user-facing
+:func:`medium_from_samples` turns raw (samples, x, y) arrays into a medium
+of the requested family plus the default trace box, for every user-facing
 surface (CLI ``--medium-file``, serve ``/v1/trace_samples`` +
-``/v1/calibrate_samples``, the fast-trace/sweep compaction sites) and had
-started to drift; this module is their single home:
-
-* :func:`medium_from_samples` — raw (samples, x, y) arrays to a medium of
-  the requested family plus the default trace box.  The reference can only
-  trace fields hard-coded in its source (RT_bench.py:104-116); measured
-  media are this framework's extension, so every surface must agree on
-  how a samples payload becomes a medium.
-* :func:`compact_for_trace` — the stratified-table reachability trim
-  (media/spline.compact_stratified and its C1 twin) with the one blessed
-  margin rule: the box's y-extent widened by two steps, so a clamped ray
-  that leaves the box mid-step still evaluates the untrimmed field.
+``/v1/calibrate_samples``).  The reference can only trace fields
+hard-coded in its source (RT_bench.py:104-116); measured media are this
+framework's extension, so every surface must agree on how a samples
+payload becomes a medium.
 """
 from __future__ import annotations
 
@@ -64,26 +57,3 @@ def medium_from_samples(samples, x=None, y=None, *, family: str = "parity",
         box = (float(x[0]), float(x[-1]), float(y[0]), float(y[-1]))
         return medium, box, "grid"
     raise ValueError(f"samples must be 1-D or 2-D, got {samples.ndim}-D")
-
-
-def compact_for_trace(medium, box, delta_s):
-    """Trim a stratified medium's table to the rays reachable from ``box``.
-
-    Dispatches :func:`media.spline.compact_stratified` /
-    :func:`media.c1.compact_c1_stratified` by family and applies the one
-    blessed margin — ``box`` y-extent ± 2·delta_s (a boxed ray's last step
-    can land at most ~delta_s outside before the exit mask freezes it).
-    Non-stratified media pass through unchanged, so call sites can apply
-    this unconditionally.
-    """
-    from raytracing_tpu.media.c1 import (C1StratifiedMedium,
-                                         compact_c1_stratified)
-    from raytracing_tpu.media.spline import (StratifiedGridMedium,
-                                             compact_stratified)
-
-    y_range = (box[2] - 2 * float(delta_s), box[3] + 2 * float(delta_s))
-    if isinstance(medium, StratifiedGridMedium):
-        return compact_stratified(medium, y_range=y_range)
-    if isinstance(medium, C1StratifiedMedium):
-        return compact_c1_stratified(medium, y_range=y_range)
-    return medium

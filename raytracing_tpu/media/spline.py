@@ -3,8 +3,8 @@
 The reference evaluates its media through FITPACK: a bilinear
 RectBivariateSpline for n and bicubic ones for each gradient component
 (RT_bench.py:455-458), three spline evaluations per integration step — the
-dominant cost of its hot loop (SURVEY.md §3.2).  FITPACK cannot run on TPU,
-so this module converts each fitted spline into *per-cell polynomial
+dominant cost of its hot loop (SURVEY.md §3.2).  FITPACK cannot run on an
+accelerator, so this module converts each fitted spline into *per-cell polynomial
 coefficient tables* once on host, after which device evaluation is a cell
 lookup plus a 4x4 tensor Horner — pure gathers and FMAs, vmappable and
 Pallas-friendly.
@@ -27,7 +27,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from raytracing_tpu.utils import struct
 
 from raytracing_tpu import config
 from raytracing_tpu.media import grid as _grid
@@ -100,10 +100,13 @@ class GridMedium:
         px = jnp.stack([jnp.ones_like(ux), ux, ux * ux, ux * ux * ux], -1)
         py = jnp.stack([jnp.ones_like(uy), uy, uy * uy, uy * uy * uy], -1)
         shape = flat.shape + (4, 4)
+        # HIGHEST: a float32 contraction may otherwise run in TF32 on the GPU
         gx = jnp.einsum("...ab,...a,...b->...",
-                        self.cx[flat].reshape(shape), py, px)
+                        self.cx[flat].reshape(shape), py, px,
+                        precision=jax.lax.Precision.HIGHEST)
         gy = jnp.einsum("...ab,...a,...b->...",
-                        self.cy[flat].reshape(shape), py, px)
+                        self.cy[flat].reshape(shape), py, px,
+                        precision=jax.lax.Precision.HIGHEST)
         return n, (gx, gy)
 
     def n(self, x, y):
@@ -253,8 +256,7 @@ def compact_stratified(medium: StratifiedGridMedium, margin: int = 2,
       that window the sampled n is constant and the gradient cells are
       zero to float32 resolution (not-a-knot ringing decays ~0.27/cell).
       Clamped evaluation on the trimmed table equals the full table within
-      f32 rounding (interface: ~681 -> ~35 nodes, ONE 128-lane gather
-      chunk in the VMEM kernels instead of six).
+      f32 rounding (interface: ~681 -> ~35 nodes).
     * **reachability** (``y_range``) — the grid is sampled over the box
       padded by +-3 (RT_bench.py:426-429), but a traced ray can never
       query outside the box plus one step (boundary exit freezes it), so
@@ -348,7 +350,7 @@ def grid_medium_from_samples(Z, x, y, *, dtype=np.float32,
     evaluates exactly like the reference pipeline applied to those samples
     — np.gradient (edge_order=2) for the gradient grids, bicubic
     not-a-knot splines of each component, bilinear n (RT_bench.py:435-464)
-    — and runs at kernel tier through fast_trace/grid_trace_tiled.  The
+    — and runs on the scan tier through fast_trace.  The
     reference can only sample the fields hard-coded in its source
     (RT_bench.py:104-116); this is the entry point for real measured media
     (e.g. sound-speed profiles), no source edits required.

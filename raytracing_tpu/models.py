@@ -5,10 +5,10 @@ The framework's "model families" are the four physics scenarios
 
 * ``analytic``      — closed-form n / grad n (exact; fastest kernels)
 * ``stratified``    — the reference's sampled-spline pipeline collapsed to
-  1-D tables for the x-independent fields (production medium; kernel-speed
-  on TPU via the table-gather kernels)
+  1-D tables for the x-independent fields (production medium; kernel
+  tier via the table-gather kernels)
 * ``grid``          — the full 2-D sampled-spline pipeline (bit-faithful
-  to FITPACK; tiled-window kernel tier)
+  to FITPACK; scan tier)
 * ``c1``            — consistent-gradient 2-D medium (media/c1.py): one
   spline serves n AND grad n — conservation at the analytic floor,
   16-float kernel cells (PARITY.md #29)
@@ -98,9 +98,9 @@ def get(name: str, medium: str = "analytic", dtype=np.float32,
     """Build (cached) a scenario + medium pairing.
 
     ``medium="grid"`` reproduces the reference's 2-D sampled-spline pipeline
-    (bit-faithful physics; fast_trace runs it through the tiled window
-    kernel); ``"stratified"`` is the same sampled medium in its exact 1-D
-    form for x-independent fields (kernel-speed on TPU); ``"analytic"`` is
+    (bit-faithful physics; fast_trace runs it on the scan tier);
+    ``"stratified"`` is the same sampled medium in its exact 1-D form for
+    x-independent fields (kernel tier); ``"analytic"`` is
     exact and the fastest path.
     """
     key = (name, medium, np.dtype(dtype).name, n_turns)

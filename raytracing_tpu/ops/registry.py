@@ -128,7 +128,7 @@ _SPECS = {
     "op11n": ("taylor2", "newton_aniso"),
     # classical RK4 on the joint (position, angle) ray ODE: global error
     # O(delta_s^4) vs the reference's best O(delta_s^2) — the route to the
-    # 1e-6 RMS north-star accuracy (BASELINE.json) at practical step sizes
+    # 1e-6 RMS north-star accuracy at practical step sizes
     "op12": ("rk4", "joint"),
 }
 

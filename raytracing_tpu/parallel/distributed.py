@@ -1,12 +1,12 @@
 """Data-parallel tracing: the ray batch sharded across a device mesh.
 
 The reference scales by submitting whole-scenario replicas to worker
-processes (RT_bench.py:1521-1523); the TPU-native equivalent is one batch,
+processes (RT_bench.py:1521-1523); the equivalent here is one batch,
 sharded.  ``trace_sharded`` lays the launch arrays out over every device of
 the mesh (both logical axes — a (2, 4) host mesh gives 8-way ray
 parallelism), runs the ordinary jitted scan, and lets XLA keep every
 per-ray computation local; ``summarize_sharded`` reduces the scenario
-metrics on device (ICI all-reduce) so only scalars reach the host.
+metrics on device (an all-reduce) so only scalars reach the host.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Device-mesh helpers: the TPU-native replacement for ProcessPoolExecutor.
+"""Device-mesh helpers: the accelerator replacement for ProcessPoolExecutor.
 
 The reference's only parallelism is OS-process fan-out with pickled spline
 objects (RT_bench.py:1317-1318, 1521-1523).  Here the equivalents are a
@@ -8,8 +8,10 @@ objects (RT_bench.py:1317-1318, 1521-1523).  Here the equivalents are a
 * ``"rays"``  — the ray batch (data parallelism; the reference's benchmark
   replicas, RT_bench.py:1521-1523, become one big sharded batch)
 
-Everything is single-program: XLA inserts ICI collectives for the metric
-reductions; no host orchestration, no pickling (SURVEY.md §5.8).
+Everything is single-program: XLA inserts the collectives for the metric
+reductions; no host orchestration, no pickling (SURVEY.md §5.8).  The
+devices of one host are joined all to all, so the mesh follows the
+algorithm alone.
 """
 from __future__ import annotations
 
@@ -20,39 +22,23 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 SWEEP_AXIS = "sweep"
 RAYS_AXIS = "rays"
-SLICE_AXIS = "slice"
 
 
-def make_mesh(n_devices: int | None = None, sweep: int | None = None,
-              slices: int | None = None) -> Mesh:
+def make_mesh(n_devices: int | None = None, sweep: int | None = None) -> Mesh:
     """Build a (sweep, rays) mesh over the first ``n_devices`` devices.
 
     ``sweep`` fixes the sweep-axis extent; by default the largest divisor of
     the device count not exceeding its square root, so both axes get devices
     (an 8-device host mesh becomes 2 x 4).
-
-    ``slices`` adds a leading ``"slice"`` axis modelling TPU multi-slice
-    (pod-of-pods) topology: work sharded over "slice" should be
-    embarrassingly parallel (DCN-friendly — e.g. disjoint DELTA_S candidate
-    chunks), while "sweep"/"rays" collectives ride intra-slice ICI
-    (SURVEY.md §5.8).  The outermost mesh axis maps to the slowest-varying
-    device dimension, which is the DCN boundary on real multi-slice jobs.
     """
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
     n = len(devs)
-    if slices:
-        if n % slices:
-            raise ValueError(f"slices={slices} does not divide device count {n}")
-        n //= slices
     if sweep is None:
         sweep = max(d for d in range(1, int(np.sqrt(n)) + 1) if n % d == 0)
     if n % sweep:
         raise ValueError(f"sweep={sweep} does not divide device count {n}")
-    if slices:
-        arr = np.asarray(devs).reshape(slices, sweep, n // sweep)
-        return Mesh(arr, (SLICE_AXIS, SWEEP_AXIS, RAYS_AXIS))
     arr = np.asarray(devs).reshape(sweep, n // sweep)
     return Mesh(arr, (SWEEP_AXIS, RAYS_AXIS))
 

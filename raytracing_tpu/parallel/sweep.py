@@ -2,7 +2,7 @@
 
 The reference sweeps step-size candidates by fanning ``search_delta`` out
 over a ProcessPoolExecutor, pickling the spline objects to every worker
-(RT_bench.py:1296-1318, 950-958).  TPU-native version: all candidates become
+(RT_bench.py:1296-1318, 950-958).  Here all candidates become
 *one* padded ``lax.scan`` — trajectory buffers sized for the longest
 candidate, each candidate carrying its own traced ``delta_s`` and
 ``step_limit`` — vmapped over the candidate axis and (optionally) sharded
@@ -118,11 +118,9 @@ def run_candidates_fused(op_name: str, scen: config.ScenarioConfig,
     """Candidate sweep through ONE compiled fused kernel — any scenario.
 
     The kernel compiles once at ``max_steps`` with a traced per-run step
-    limit; each candidate is a kernel launch at full fused throughput
-    (10-40 G ray-steps/s analytic, ~4 G table-gather) instead of the scan
-    engine's ~1.5 G.  ``medium``: pass a ``StratifiedGridMedium`` to sweep on
-    the reference-faithful sampled medium (RT_bench.py:435-464); None uses
-    the analytic field.
+    limit; each candidate is one kernel launch.  ``medium``: pass a
+    ``StratifiedGridMedium`` to sweep on the reference-faithful sampled
+    medium (RT_bench.py:435-464); None uses the analytic field.
 
     Per-scenario metrics (the reference's search_delta, RT_bench.py:950-958):
 
@@ -134,43 +132,26 @@ def run_candidates_fused(op_name: str, scen: config.ScenarioConfig,
       tail-secant computation; divergence logged in docs/PARITY.md);
     * vert/aniso -> ``cv_pct`` from the in-kernel Welford momentum tracker.
 
-    ``medium`` may also be a 2-D ``GridMedium``/``HermiteGridMedium``
-    (fisheye only — the x-independent fields collapse exactly to the
-    stratified 1-D form): candidates then run through the tiled window
-    kernel (engine/segmented.grid_trace_tiled), which jit-caches across
-    candidates, so the sweep runs on the very spline pipeline the
-    reference calibrates (RT_bench.py:435-464) instead of the analytic
-    stand-in.
+    2-D grid media sweep on the scan tier (:func:`run_candidates`).
     """
     import jax as _jax
 
     from raytracing_tpu.kernels.fused import (fused_trace_final,
                                               fused_trace_final_strat)
     from raytracing_tpu.kernels.golden import GOLDEN_OPS, golden_trace_final
-    from raytracing_tpu.media.hermite import HermiteGridMedium
-    from raytracing_tpu.media.spline import GridMedium, StratifiedGridMedium
+    from raytracing_tpu.kernels.route import resolve_interpret
+    from raytracing_tpu.media.c1 import C1StratifiedMedium
+    from raytracing_tpu.media.spline import StratifiedGridMedium
 
-    if interpret is None:
-        interpret = _jax.default_backend() == "cpu"
-    from raytracing_tpu.media.c1 import C1GridMedium, C1StratifiedMedium
-
-    use_grid = isinstance(medium, (GridMedium, HermiteGridMedium,
-                                   C1GridMedium))
-    if use_grid:
-        if not scen.is_fisheye:
-            raise ValueError(
-                "2-D grid sweeps cover the fisheye scenario; interface/"
-                "vert sample exactly to 1-D — pass a StratifiedGridMedium")
-        if isinstance(medium, GridMedium):
-            from raytracing_tpu.engine.fast import _as_hermite
-
-            medium = _as_hermite(medium)
+    interpret = resolve_interpret(interpret)
     use_strat = isinstance(medium, (StratifiedGridMedium,
                                     C1StratifiedMedium))
-    from raytracing_tpu.media.samples import compact_for_trace
-
-    # the widest candidate step sets the reachability margin for the batch
-    medium = compact_for_trace(medium, scen.box, float(np.max(delta_s)))
+    if medium is not None and not use_strat:
+        # the kernels would otherwise trace the scenario's analytic field
+        raise ValueError(
+            f"the kernel sweep takes a stratified medium or None, got "
+            f"{type(medium).__name__}; grid media sweep on the scan tier "
+            f"(run_candidates)")
     use_golden = op_name in GOLDEN_OPS
     deg = 180.0 / np.pi
 
@@ -197,43 +178,6 @@ def run_candidates_fused(op_name: str, scen: config.ScenarioConfig,
         ("mean_err", "max_err") if scen.is_interface else
         ("closure_pct",) if scen.is_fisheye else ("cv_pct",))}
 
-    if use_grid and op_name not in GOLDEN_OPS:
-        # batched: one candidate per kernel block, each with its own
-        # (delta_s, limit) scalar row and its own window — the whole sweep
-        # advances in ~max_steps/segment launches (engine/segmented.
-        # grid_sweep_tiled) instead of per-candidate runs
-        from raytracing_tpu.engine.segmented import grid_sweep_tiled
-        from raytracing_tpu.engine.streaming import trace_chunked
-
-        n = len(delta_s)
-        pos_c = np.tile(np.array([[1.0, 0.0]], np.float32), (n, 1))
-        th_c = np.full(n, np.pi / 2.0, np.float32)
-        final, fb = grid_sweep_tiled(
-            op_name, pos_c, th_c, np.asarray(delta_s, np.float32),
-            np.asarray(step_limits, np.float32), medium,
-            box=tuple(scen.box), interpret=interpret)
-        for i in fb:
-            # too coarse for any window: bounded scan segments (these are
-            # also the shortest candidates, tens of steps)
-            res = trace_chunked(
-                op_name, scen, medium, delta_s=float(delta_s[i]),
-                max_size=int(step_limits[i]) + 1, pos0=pos_c[i:i + 1],
-                theta0=th_c[i:i + 1])
-            final[i] = np.asarray(res.final.pos[0])
-        out["closure_pct"][:] = (100.0 / (2.0 * np.pi)) * np.linalg.norm(
-            final - [1.0, 0.0], axis=1)
-        if checkpoint is not None:
-            from raytracing_tpu.utils.checkpoint import SweepCheckpoint
-
-            store = SweepCheckpoint(checkpoint, meta={
-                "op": op_name, "scenario": scen.name, "engine": "fused",
-                "candidates": int(n), "chunk": int(chunk)})
-            for ci in range(-(-n // chunk)):
-                if not store.has_chunk(ci):
-                    lo = ci * chunk
-                    store.add_chunk(ci, {
-                        "closure_pct": out["closure_pct"][lo:lo + chunk]})
-        return out
     store = None
     if checkpoint is not None:
         from raytracing_tpu.utils.checkpoint import SweepCheckpoint
@@ -253,31 +197,7 @@ def run_candidates_fused(op_name: str, scen: config.ScenarioConfig,
                 done_upto = i + n
             if i < done_upto:
                 continue
-        if use_grid:
-            from raytracing_tpu.engine.segmented import grid_trace_tiled
-
-            # each candidate runs its own exact step count through the
-            # tiled kernel; variants jit-cache by (segment, tile)
-            try:
-                f = grid_trace_tiled(
-                    op_name, pos0, theta0, np.float32(ds), medium,
-                    steps=int(lim), box=tuple(scen.box),
-                    block_rays=min(block_rays, 1024), interpret=interpret,
-                    gamma=float(scen.gamma))
-            except RuntimeError:
-                # ultra-coarse candidate: one step crosses more cells than
-                # any window holds — bounded scan segments instead (these
-                # candidates are also the shortest, tens of steps)
-                import types
-
-                from raytracing_tpu.engine.streaming import trace_chunked
-
-                res = trace_chunked(
-                    op_name, scen, medium, delta_s=float(ds),
-                    max_size=int(lim) + 1, pos0=np.asarray(pos0[:1]),
-                    theta0=np.asarray(theta0[:1]))
-                f = types.SimpleNamespace(pos=np.asarray(res.final.pos))
-        elif use_golden:
+        if use_golden:
             f = golden_trace_final(
                 pos0, theta0, np.float32(ds), np.float32(scen.gamma),
                 field=scen.field, op=op_name, steps=int(max_steps),
@@ -411,21 +331,14 @@ def fused_sweep_supported(op_name: str, scen: config.ScenarioConfig,
     """True when the kernel-speed sweep covers this configuration."""
     from raytracing_tpu.kernels.fused import FUSED_FIELDS, FUSED_OPS
     from raytracing_tpu.kernels.golden import GOLDEN_OPS
+    from raytracing_tpu.media.c1 import C1StratifiedMedium
     from raytracing_tpu.media.medium import AnalyticMedium
     from raytracing_tpu.media.spline import StratifiedGridMedium
 
-    from raytracing_tpu.media.hermite import HermiteGridMedium
-    from raytracing_tpu.media.spline import GridMedium
-
     if op_name not in FUSED_OPS and op_name not in GOLDEN_OPS:
         return False
-    from raytracing_tpu.media.c1 import C1GridMedium, C1StratifiedMedium
-
     if isinstance(medium, (StratifiedGridMedium, C1StratifiedMedium)):
         return not scen.is_fisheye
-    if isinstance(medium, (GridMedium, HermiteGridMedium, C1GridMedium)):
-        # 2-D grid sweeps run through the tiled window kernel (fisheye only)
-        return scen.is_fisheye
     # the kernel sweep inlines the SCENARIO's field; an analytic medium with
     # a different field must go through the scan tier, which honors it
     return (isinstance(medium, AnalyticMedium)
@@ -447,8 +360,8 @@ def delta_s_search(op_name: str, scen: config.ScenarioConfig, medium, *,
     RT_bench.py:1404-1406 — the caller decides that policy here).
 
     ``engine``: "scan" runs every candidate through the reference-parity
-    scan engine; "fused" through the Pallas kernels (10-40x faster; requires
-    a fused-covered op/medium); "auto" picks fused when supported.
+    scan engine; "fused" through the kernels (requires a fused-covered
+    op/medium); "auto" picks fused when supported on a compiled route.
 
     ``divisors`` overrides the reference candidate grid
     (RT_bench.py:1302-1312), descending, same units as that grid (fisheye:
@@ -458,15 +371,16 @@ def delta_s_search(op_name: str, scen: config.ScenarioConfig, medium, *,
     reachable at divisors above the reference grid's 3.0 ceiling
     (benchmarks/calibrate_analytic.py; docs/PARITY.md #28).
     """
+    from raytracing_tpu.kernels.route import kernel_route
     from raytracing_tpu.ops.registry import canonical
 
     op_c = canonical(op_name)
     if engine == "auto":
-        # fused kernels only lower natively on TPU (Pallas interpret mode on
-        # CPU is far slower than the scan engine), and the fused path honors
-        # neither an explicit mesh nor a non-f32 dtype — auto respects those
-        # requests by staying on the scan tier
-        engine = ("fused" if (jax.default_backend() != "cpu"
+        # interpreted kernels (the CPU route) are far slower than the scan
+        # engine, and the fused path honors neither an explicit mesh nor a
+        # non-f32 dtype — auto respects those requests by staying on the
+        # scan tier
+        engine = ("fused" if (kernel_route() == "triton"
                               and mesh is None
                               and np.dtype(dtype) == np.float32
                               and fused_sweep_supported(op_c, scen, medium))
@@ -488,14 +402,11 @@ def delta_s_search(op_name: str, scen: config.ScenarioConfig, medium, *,
         if not fused_sweep_supported(op_c, scen, medium):
             raise ValueError(f"fused sweep does not cover {op_c!r} on "
                              f"{type(medium).__name__} ({scen.name})")
-        from raytracing_tpu.media.hermite import HermiteGridMedium
-        from raytracing_tpu.media.spline import GridMedium, StratifiedGridMedium
+        from raytracing_tpu.media.c1 import C1StratifiedMedium
+        from raytracing_tpu.media.spline import StratifiedGridMedium
 
-        from raytracing_tpu.media.c1 import (C1GridMedium,
-                                             C1StratifiedMedium)
         med = (medium if isinstance(
-            medium, (StratifiedGridMedium, GridMedium, HermiteGridMedium,
-                     C1GridMedium, C1StratifiedMedium)) else None)
+            medium, (StratifiedGridMedium, C1StratifiedMedium)) else None)
         metrics = run_candidates_fused(
             op_c, scen, delta_s, sizes - 1, max_size - 1, medium=med,
             rays=rays, block_rays=block_rays, checkpoint=checkpoint)

@@ -56,15 +56,15 @@ import raytracing_tpu as rt
 from raytracing_tpu import config
 from raytracing_tpu.calibrated import calibrated as calibrated_table
 from raytracing_tpu.engine import oracles
-from raytracing_tpu.engine.fast import fast_trace, tight_block_rays
+from raytracing_tpu.engine.fast import fast_trace
 from raytracing_tpu.ops.registry import (EXTENSION_OPS, GOLDEN_OPS, OP_NAMES,
                                          canonical)
 
 
 # Serving-side resource bounds.  ``steps`` is a static kernel trip count:
 # each new value compiles a fresh executable, and huge trip counts both
-# blow the compile budget and request unbounded VMEM — so every derived
-# step count is capped, not just ``rays``.
+# blow the compile budget and hold the device for unbounded time — so
+# every derived step count is capped, not just ``rays``.
 MAX_RAYS = 16_777_216
 MAX_STEPS = 2_000_000
 MAX_TURNS = 1_000
@@ -118,7 +118,7 @@ def _trace_request(body: dict) -> dict:
         medium = models.get(scen.name, medium="stratified").medium
     elif medium_kind == "grid":
         # the reference's full 2-D sampled-spline pipeline; fast_trace
-        # routes it through the tiled window kernel (models caches the
+        # routes it through the scan tier (models caches the
         # sampled tables per scenario)
         from raytracing_tpu import models
         medium = models.get(scen.name, medium="grid").medium
@@ -278,7 +278,7 @@ def _calibrate_samples_request(body: dict) -> dict:
     sr = delta_s_search_convergence(
         op, medium, pos0=pos0, theta0=theta0, arc_length=arc,
         box=scen.box, gamma=scen.gamma, candidates=cands, tol=tol,
-        block_rays=tight_block_rays(rays))
+        block_rays=128)
     dt = time.perf_counter() - t0
     errs = sr.metrics["halving_err"]
     return {
@@ -333,7 +333,7 @@ def _trace_samples_request(body: dict) -> dict:
     t0 = time.perf_counter()
     out = fast_trace(op, scen, medium, delta_s=delta_s, steps=steps,
                      pos0=pos0, theta0=theta0, stats=report_cv,
-                     block_rays=tight_block_rays(rays))
+                     block_rays=128)
     pos = np.asarray(out.pos)
     dt = time.perf_counter() - t0
 

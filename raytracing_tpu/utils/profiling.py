@@ -1,7 +1,7 @@
 """Tracing / profiling utilities (SURVEY.md 5.1).
 
 The reference's observability is ``perf_counter`` brackets around each ray
-loop (RT_bench.py:831, 881-882).  The TPU equivalents: throughput counters
+loop (RT_bench.py:831, 881-882).  The equivalents here: throughput counters
 derived from scan length x ray count, and ``jax.profiler`` device traces
 viewable in TensorBoard/XProf.
 """

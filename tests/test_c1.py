@@ -102,17 +102,6 @@ def test_c1_stratified_matches_1d_spline():
     assert np.all(np.asarray(gx) == 0.0)
 
 
-def test_c1_kappa_bound_dominates_sampled_gradient():
-    Z, x, y = _sample_grid()
-    med = c1_medium_from_samples(Z, x, y, dtype=np.float64)
-    rng = np.random.default_rng(3)
-    qx = rng.uniform(x[0], x[-1], 4096)
-    qy = rng.uniform(y[0], y[-1], 4096)
-    n, (gx, gy) = med.n_and_grad(qx, qy)
-    kappa = np.sqrt(np.asarray(gx) ** 2 + np.asarray(gy) ** 2) / np.asarray(n)
-    assert kappa.max() <= med.kappa_max * (1 + 1e-12)
-
-
 def test_c1_repairs_vert_momentum_cv():
     """The headline: consistency beats the parity medium's CV floor.
 
@@ -157,56 +146,6 @@ def c1_fisheye():
 
 
 @pytest.mark.slow
-def test_c1_tiled_kernel_matches_scan(c1_fisheye):
-    """The 16-channel tiled window kernel evaluates the same C1 spline as
-    the scan tier (shared media.c1.c1_blend definition)."""
-    from raytracing_tpu.engine.segmented import grid_trace_tiled
-
-    scen, med, pos0, theta0 = c1_fisheye
-    ds = np.float32(2 * np.pi / 303)
-    g = grid_trace_tiled("op1", pos0, theta0, ds, med, steps=48,
-                         box=tuple(scen.box), block_rays=1024,
-                         interpret=True)
-    ref = rt.trace("op1", scen, med, delta_s=float(ds), mode="metrics",
-                   dtype=np.float32, max_size=49, pos0=pos0, theta0=theta0)
-    np.testing.assert_allclose(np.asarray(g.pos),
-                               np.asarray(ref.final.pos), atol=5e-6)
-    np.testing.assert_allclose(np.asarray(g.traveltime),
-                               np.asarray(ref.final.traveltime), atol=5e-5)
-
-
-@pytest.mark.slow
-def test_c1_tiled_golden_op(c1_fisheye):
-    from raytracing_tpu.engine.segmented import grid_trace_tiled
-
-    scen, med, pos0, theta0 = c1_fisheye
-    ds = np.float32(2 * np.pi / 303)
-    # parity bracket schedule: the f32 scan engine follows the pure-bracket
-    # angle sequence (same convention as test_tiled_golden_ops_on_grid)
-    from raytracing_tpu.config import golden_iters
-    parity = (golden_iters(np.float32), 0)
-    g = grid_trace_tiled("op5", pos0, theta0, ds, med, steps=32,
-                         box=tuple(scen.box), block_rays=1024,
-                         interpret=True, gold_schedule=parity)
-    ref = rt.trace("op5", scen, med, delta_s=float(ds), mode="metrics",
-                   dtype=np.float32, max_size=33, pos0=pos0, theta0=theta0)
-    np.testing.assert_allclose(np.asarray(g.pos),
-                               np.asarray(ref.final.pos), atol=3e-4)
-
-
-@pytest.mark.slow
-def test_c1_tiled_oriented_bit_identical(c1_fisheye):
-    from raytracing_tpu.engine.segmented import grid_trace_tiled
-
-    scen, med, pos0, theta0 = c1_fisheye
-    ds = np.float32(2 * np.pi / 303)
-    kw = dict(steps=40, box=tuple(scen.box), block_rays=1024, interpret=True)
-    a = grid_trace_tiled("op1", pos0, theta0, ds, med, **kw)
-    b = grid_trace_tiled("op1", pos0, theta0, ds, med, oriented=True, **kw)
-    np.testing.assert_array_equal(np.asarray(a.pos), np.asarray(b.pos))
-
-
-@pytest.mark.slow
 def test_fast_trace_routes_c1_to_tiled(c1_fisheye):
     from raytracing_tpu.engine.fast import fast_trace
 
@@ -214,14 +153,9 @@ def test_fast_trace_routes_c1_to_tiled(c1_fisheye):
     out = fast_trace("op1", scen, med, delta_s=2 * np.pi / 303,
                      pos0=pos0, theta0=theta0, steps=48, block_rays=1024,
                      interpret=True)
-    assert out.engine == "grid-tiled"
+    # 2-D grid media run on the scan tier
+    assert out.engine == "scan"
     assert np.all(np.isfinite(np.asarray(out.pos)))
-    # row-window mode stays parity-only
-    from raytracing_tpu.engine.segmented import grid_trace_tiled
-    with pytest.raises(ValueError, match="row windows"):
-        grid_trace_tiled("op1", pos0, theta0, np.float32(0.01), med,
-                         steps=8, box=tuple(scen.box), block_rays=1024,
-                         interpret=True, row_windows=True)
 
 
 @pytest.mark.slow
@@ -285,7 +219,7 @@ def test_c1_model_zoo_and_diff_tier():
     assert np.all(np.isfinite(np.asarray(out.pos)))
     m2 = models.get("fisheye", medium="c1")
     out2 = m2.run("op1", block_rays=128)
-    assert out2.engine == "grid-tiled"
+    assert out2.engine == "scan"
 
     scen = rt.scenario("fisheye")
     c1 = build_c1_medium("fisheye", scen.box, dtype=np.float32)
@@ -303,24 +237,14 @@ def test_c1_model_zoo_and_diff_tier():
 
 @pytest.mark.slow
 def test_c1_sweep_paths():
-    """The batched tiled sweep and the fused candidate sweep cover C1
-    media (grid AND stratified forms)."""
-    from raytracing_tpu.engine.segmented import grid_sweep_tiled
+    """The fused candidate sweep covers the stratified C1 form; the 2-D
+    C1 grid sweeps on the scan tier."""
     from raytracing_tpu.parallel.sweep import (fused_sweep_supported,
                                                run_candidates_fused)
 
     scen = rt.scenario("fisheye")
     c1 = build_c1_medium("fisheye", scen.box, dtype=np.float32)
-    assert fused_sweep_supported("op1", scen, c1)
-    nc = 4
-    ds = (2 * np.pi / np.array([60.0, 50.0, 40.0, 30.0])).astype(np.float32)
-    lim = np.full(nc, 24, np.float32)
-    pos0 = np.tile(np.array([[1.0, 0.0]], np.float32), (nc, 1))
-    th = np.full(nc, np.pi / 2, np.float32)
-    final, fb = grid_sweep_tiled("op1", pos0, th, ds, lim, c1,
-                                 box=tuple(scen.box), block_rays=1024,
-                                 interpret=True)
-    assert fb == [] and np.all(np.isfinite(final))
+    assert not fused_sweep_supported("op1", scen, c1)
 
     vs = rt.scenario("vert")
     vc1 = build_c1_stratified("vert_heterogeneous", vs.box,
@@ -335,7 +259,7 @@ def test_c1_sweep_paths():
 
 def test_compact_c1_stratified():
     """The C1 table trim (media.c1.compact_c1_stratified): interface's
-    681-row padded table collapses to one gather chunk, and trimmed
+    681-row padded table collapses to at most 128 rows, and trimmed
     evaluation matches the full table over the reachable range."""
     from raytracing_tpu.media.c1 import compact_c1_stratified
 
@@ -343,7 +267,7 @@ def test_compact_c1_stratified():
     full = build_c1_stratified("interface", scen.box, dtype=np.float32)
     trim = compact_c1_stratified(full, y_range=(scen.box[2] - 0.05,
                                                 scen.box[3] + 0.05))
-    assert trim.ny <= 128, trim.ny          # one 128-lane gather chunk
+    assert trim.ny <= 128, trim.ny
     ys = np.linspace(scen.box[2], scen.box[3], 2001)
     nf, (_, gf) = full.n_and_grad(np.zeros_like(ys), ys)
     nt, (_, gt) = trim.n_and_grad(np.zeros_like(ys), ys)
@@ -355,9 +279,9 @@ def test_compact_c1_stratified():
 
 @pytest.mark.slow
 def test_c1_grid_sharded_entry(c1_fisheye):
-    """fast_trace_sharded accepts the 2-D C1 medium (tiled kernel under
+    """fast_trace_sharded accepts the 2-D C1 medium (the scan tier under
     the mesh), not just the 1-D stratified form."""
-    from raytracing_tpu.engine.fast import fast_trace_sharded
+    from raytracing_tpu.engine.fast import fast_trace, fast_trace_sharded
     from raytracing_tpu.parallel.mesh import make_mesh
 
     n_dev = jax.device_count()
@@ -368,8 +292,10 @@ def test_c1_grid_sharded_entry(c1_fisheye):
     g = fast_trace_sharded("op1", scen, med, delta_s=2 * np.pi / 64,
                            pos0=pos0, theta0=theta0, mesh=make_mesh(n_dev),
                            steps=16, block_rays=128, interpret=True)
-    assert g.engine == "grid-tiled-sharded"
-    assert np.all(np.isfinite(np.asarray(g.pos)))
+    assert g.engine == "scan-sharded"
+    single = fast_trace("op1", scen, med, delta_s=2 * np.pi / 64,
+                        pos0=pos0, theta0=theta0, steps=16)
+    np.testing.assert_array_equal(np.asarray(g.pos), np.asarray(single.pos))
 
 
 def test_c1_grid_fisheye_closure():

@@ -32,7 +32,7 @@ def test_df_matches_f64_rk4(div, bound):
 
 @pytest.mark.slow  # heavyweight: deselected by -m 'not slow' (CLAUDE.md smoke tier)
 def test_df_meets_north_star_rms():
-    """BASELINE.json: RMS trajectory error <= 1e-6 vs the analytic fisheye
+    """North star: RMS trajectory error <= 1e-6 vs the analytic fisheye
     circle, at the benchmark divisor, in pure float32 arithmetic.
 
     The trajectory is sampled at 10 evenly spaced arc lengths (re-simulated

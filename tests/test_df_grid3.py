@@ -167,9 +167,9 @@ def test_eigenray3_f32_solve_plain_medium():
 def test_facade_pick_rows_f64_grade():
     """Crossing-pick rows through the facade at f32 match the all-f64
     rows AT EQUAL LAUNCH DIRECTION — the 2-D tier's attribution
-    methodology (VERDICT r4: per-arrival deviations are dominated by the
+    methodology (per-arrival deviations are dominated by the
     theta0 root shift through dq/dtheta0, NOT arithmetic; compare at
-    equal launch).  This is the f64-substitute claim for on-chip 3-D
+    equal launch).  This is the f64-substitute claim for float32 3-D
     eigenray work, testable on any backend."""
     from raytracing_tpu.engine.dynamic3d import (CROSS3_COLS,
                                                  trace_crossings_pick3)

@@ -83,27 +83,6 @@ def test_mesh_sharding_helpers():
     assert not d.sharding.is_fully_replicated
 
 
-def test_slice_mesh_topology():
-    """3-axis (slice, sweep, rays) mesh: the multi-slice DCN layout."""
-    mesh = make_mesh(8, slices=2)
-    assert mesh.axis_names == ("slice", "sweep", "rays")
-    assert mesh.shape["slice"] == 2
-    assert mesh.devices.size == 8
-    # candidates sharded over (slice, sweep) jointly
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    a = jax.device_put(np.zeros(8), NamedSharding(mesh, P(("slice", "sweep"))))
-    assert len(a.sharding.device_set) == 8
-
-
-def test_slice_mesh_rejects_indivisible():
-    try:
-        make_mesh(8, slices=3)
-    except ValueError as e:
-        assert "slices" in str(e)
-    else:
-        raise AssertionError("expected ValueError")
-
-
 def test_fast_trace_sharded_stratified():
     """The sampled production medium under shard_map over the CPU mesh."""
     from raytracing_tpu.engine.fast import fast_trace, fast_trace_sharded
@@ -128,9 +107,8 @@ def test_fast_trace_sharded_stratified():
 def test_fast_trace_sharded_custom_medium_correct_physics():
     """Regression: fast_trace_sharded used to silently trace the SCENARIO's
     analytic field for non-analytic media; a constant custom medium must
-    produce straight rays, and grid media must be rejected loudly."""
+    produce straight rays, and grid media must trace their own tables."""
     import jax.numpy as jnp
-    import pytest
     from raytracing_tpu.engine.fast import fast_trace_sharded
     from raytracing_tpu.media.medium import CustomMedium
     mesh = make_mesh(8)
@@ -146,8 +124,9 @@ def test_fast_trace_sharded_custom_medium_correct_physics():
     p = np.asarray(out.pos)
     np.testing.assert_allclose(p[:, 0], 1.0, atol=1e-5)
     np.testing.assert_allclose(p[:, 1], 0.36, atol=1e-5)
-    # 2-D grid media route through the mesh-aware tiled kernel (NOT
-    # silently swapped for the analytic field — its tables are the spline)
+    # 2-D grid media run the scan tier over the mesh (NOT silently
+    # swapped for the analytic field — their tables are the spline)
+    from raytracing_tpu.engine.fast import fast_trace
     from raytracing_tpu.media.hermite import build_hermite_medium
     from raytracing_tpu.media.spline import build_grid_medium
     hm = build_hermite_medium(build_grid_medium("fisheye", scen.box,
@@ -155,5 +134,7 @@ def test_fast_trace_sharded_custom_medium_correct_physics():
     g = fast_trace_sharded("op1", scen, hm, delta_s=0.01, mesh=mesh,
                            pos0=pos0, theta0=theta0, steps=8,
                            block_rays=128, interpret=True)
-    assert g.engine == "grid-tiled-sharded"
-    assert np.all(np.isfinite(np.asarray(g.pos)))
+    assert g.engine == "scan-sharded"
+    single = fast_trace("op1", scen, hm, delta_s=0.01, pos0=pos0,
+                        theta0=theta0, steps=8)
+    np.testing.assert_array_equal(np.asarray(g.pos), np.asarray(single.pos))

@@ -201,8 +201,7 @@ def test_hand_tangent_matches_jvp_f64():
     hand_tangent) is the SAME derivative as jax.jvp of the discrete step:
     at f64 the two evaluations must agree to roundoff (the compensation
     is exact-arithmetic-neutral).  Guards both the derivation and the
-    carry plumbing; the f32 payoff is measured on-chip
-    (benchmarks/eigenray_tpu_probe.py)."""
+    carry plumbing."""
     import raytracing_tpu.engine.dynamic as dd
 
     scen = rt.scenario("fisheye")

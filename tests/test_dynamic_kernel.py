@@ -244,42 +244,6 @@ def test_interface_sigmoid_tangent_is_finite_and_exact_at_zero():
 
 
 @pytest.mark.slow
-def test_dynamic_tiled_matches_scan_jvp():
-    """The tiled-window dynamic kernel (grid_trace_dynamic_tiled) tracks
-    the scan tier's exact jvp on the SAMPLED 2-D fisheye: the in-cell
-    derivative channels (_tile_nag_h — bilinear-n tangent + the full 2x2
-    gradient Jacobian of the independent gx/gy bicubics) are the live 2-D
-    form of the reference's dead Hessian splines (RT_bench.py:459-462).
-    Float-accumulation tolerance (polynomial rotations + Kahan in the
-    kernel vs exact cos/sin in the scan), KMAH exact."""
-    from raytracing_tpu.engine.dynamic import trace_dynamic
-    from raytracing_tpu.engine.segmented import grid_trace_dynamic_tiled
-    from raytracing_tpu.media.hermite import build_hermite_medium
-    from raytracing_tpu.media.spline import build_grid_medium
-
-    scen = rt.scenario("fisheye")
-    med = build_hermite_medium(
-        build_grid_medium("fisheye", scen.box, dtype=np.float32))
-    r = 512
-    theta0 = (np.pi / 2 + np.linspace(-0.05, 0.05, r)).astype(np.float32)
-    pos0 = np.tile(np.array([1.0, 0.0], np.float32), (r, 1))
-    ds = np.float32(2 * np.pi / 4587)
-    g = grid_trace_dynamic_tiled("op6", pos0, theta0, ds, med, steps=400,
-                                 box=tuple(scen.box), interpret=True,
-                                 block_rays=256)
-    d = trace_dynamic("op6", scen, med, delta_s=float(ds), mode="metrics",
-                      dtype=np.float32, pos0=pos0, theta0=theta0,
-                      max_size=401, step_limit=400)
-    np.testing.assert_allclose(np.asarray(g.pos), np.asarray(d.pos),
-                               atol=5e-6)
-    np.testing.assert_allclose(np.asarray(g.q), np.asarray(d.q),
-                               rtol=5e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(g.dtheta), np.asarray(d.dtheta),
-                               rtol=5e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(g.kmah), np.asarray(d.kmah))
-
-
-@pytest.mark.slow
 def test_fast_dynamic_routes_grid_to_tiled():
     from raytracing_tpu.engine.fast import fast_dynamic
     from raytracing_tpu.media.spline import build_grid_medium
@@ -292,72 +256,11 @@ def test_fast_dynamic_routes_grid_to_tiled():
     res, eng = fast_dynamic("op6", scen, med, delta_s=2 * np.pi / 4587,
                             pos0=pos0, theta0=theta0, steps=300,
                             block_rays=256)
-    assert eng == "dynamic-kernel-tiled" and res.q.shape == (r,)
+    # 2-D grid media take the scan tier's exact jvp
+    assert eng == "dynamic-scan" and res.q.shape == (r,)
     assert np.all(np.isfinite(np.asarray(res.q)))
-    # error paths: golden op falls through to the scan tier
+    # golden ops fall through to the scan tier too
     res5, eng5 = fast_dynamic("op5", scen, med, delta_s=2 * np.pi / 4587,
                               pos0=pos0, theta0=theta0, steps=50,
                               block_rays=256)
     assert eng5 == "dynamic-scan"
-    from raytracing_tpu.engine.segmented import grid_trace_dynamic_tiled
-    with pytest.raises(ValueError, match="supports"):
-        grid_trace_dynamic_tiled("op5", pos0[:256], theta0[:256],
-                                 np.float32(0.001), None, steps=8,
-                                 box=tuple(scen.box), interpret=True)
-
-
-@pytest.mark.slow
-def test_dynamic_tiled_c1_matches_scan_jvp():
-    """The 16-float C1 tile evaluator (_tile_nag_c1_h): n, gradient AND
-    the symmetric second-derivative matrix all from ONE bicubic patch —
-    scan-jvp parity on the C1 sampled fisheye at float-accumulation
-    tolerance, KMAH exact."""
-    from raytracing_tpu.engine.dynamic import trace_dynamic
-    from raytracing_tpu.engine.segmented import grid_trace_dynamic_tiled
-    from raytracing_tpu.media.c1 import build_c1_medium
-
-    scen = rt.scenario("fisheye")
-    med = build_c1_medium("fisheye", scen.box, dtype=np.float32)
-    r = 512
-    theta0 = (np.pi / 2 + np.linspace(-0.05, 0.05, r)).astype(np.float32)
-    pos0 = np.tile(np.array([1.0, 0.0], np.float32), (r, 1))
-    ds = np.float32(2 * np.pi / 4587)
-    g = grid_trace_dynamic_tiled("op6", pos0, theta0, ds, med, steps=400,
-                                 box=tuple(scen.box), interpret=True,
-                                 block_rays=256)
-    d = trace_dynamic("op6", scen, med, delta_s=float(ds), mode="metrics",
-                      dtype=np.float32, pos0=pos0, theta0=theta0,
-                      max_size=401, step_limit=400)
-    np.testing.assert_allclose(np.asarray(g.pos), np.asarray(d.pos),
-                               atol=5e-6)
-    np.testing.assert_allclose(np.asarray(g.q), np.asarray(d.q),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(g.kmah), np.asarray(d.kmah))
-
-
-@pytest.mark.slow
-def test_dynamic_tiled_dispersed_packed_terminates():
-    """Regression (round-5 ADVICE): the PACKED escalation ladder must track
-    the UNPACKED tile.  With pack=4, _pk((11,11)) = (10,12) (area 120) and
-    next_tile((10,12)) = (11,11) (area 121), which re-packs to (10,12) — the
-    old ladder looped forever on a dispersed batch instead of escalating to
-    (16,16) and finally raising the RuntimeError fast_dynamic falls back
-    on.  A genuinely scattered batch must now terminate with that error.
-    The 13x13-node medium admits only the (11, 11) ladder rung, so the
-    (fixed) ladder exhausts after one escalation attempt — the looping
-    code never leaves the first rung at all."""
-    from raytracing_tpu.engine.segmented import grid_trace_dynamic_tiled
-    from raytracing_tpu.media.c1 import c1_medium_from_samples
-
-    ax = np.linspace(-1.5, 1.5, 13)
-    X, Y = np.meshgrid(ax, ax)
-    med = c1_medium_from_samples(1.0 / (1.0 + X ** 2 + Y ** 2), ax, ax,
-                                 dtype=np.float32)
-    rng = np.random.default_rng(7)
-    r = 128
-    pos0 = rng.uniform(-1.4, 1.4, (r, 2)).astype(np.float32)
-    theta0 = rng.uniform(0, 2 * np.pi, r).astype(np.float32)
-    with pytest.raises(RuntimeError, match="scan tier"):
-        grid_trace_dynamic_tiled("op6", pos0, theta0, np.float32(0.003),
-                                 med, steps=50, box=(-1.5, 1.5, -1.5, 1.5),
-                                 block_rays=128, interpret=True, pack=4)

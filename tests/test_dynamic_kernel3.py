@@ -143,17 +143,14 @@ def test_fast_dynamic3_routing():
     assert eng == "dynamic3-kernel" and res.detq.shape == (200,)
     assert np.all(np.isfinite(np.asarray(res.detq)))
 
-    # sampled grid3 media route to the tiled-window dynamic kernel since
-    # the round-5 second wave (engine/tiled3.grid3_trace_dynamic_tiled);
-    # the scan fallback for dispersed batches is pinned in
-    # tests/test_dynamic_tiled3.py
+    # sampled grid3 media take the scan tier's exact jvp
     ax = np.linspace(-1.6, 1.6, 9)
     X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
     med = c1_medium3_from_samples(1.0 / (1.0 + X**2 + Y**2 + Z**2),
                                   ax, ax, ax, dtype=np.float32)
     res2, eng2 = fast_dynamic3("op6", med, pos0=pos0, dir0=dirs,
                                delta_s=ds, steps=100, box=BOX)
-    assert eng2 == "dynamic3-kernel-tiled"
+    assert eng2 == "dynamic3-scan"
     p = np.asarray(res2.pos)
     inside = ((p[:, 0] >= BOX[0]) & (p[:, 0] <= BOX[1])
               & (p[:, 1] >= BOX[2]) & (p[:, 1] <= BOX[3])

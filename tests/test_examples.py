@@ -55,7 +55,7 @@ def test_delta_s_search_example(tmp_path):
 def test_sampled_medium_production_example():
     out = _run("sampled_medium_production.py",
                extra="sys.argv = ['x', '4096']; ")
-    assert "grid-tiled" in out and "DELTA_S search" in out
+    assert "fisheye 2-D spline [scan]" in out and "DELTA_S search" in out
 
 
 def test_ocean_waveguide_example():
@@ -70,10 +70,10 @@ def test_ocean_waveguide_example():
 def test_measured_medium_example():
     out = _run("measured_medium.py",
                extra="sys.argv = ['x', '4096', '150']; ")
-    # both media must take the tiled-window kernel path (a fallback to
-    # supercell/scan means the block sizing regressed) and the C1 medium
-    # must track the smooth truth at least as well as the parity pipeline
-    assert out.count("[grid-tiled]") == 2, out
+    # both media take the scan tier (2-D grid media run there) and the C1
+    # medium must track the smooth truth at least as well as the parity
+    # pipeline
+    assert out.count("[scan]") == 2, out
     import re
     devs = {m[1]: float(m[2]) for m in
             re.finditer(r"(\w+)\s+max trajectory deviation.*?: ([\d.e+-]+)",

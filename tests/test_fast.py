@@ -44,17 +44,15 @@ def test_routes_golden():
 
 
 def test_grid_medium_coarse_steps_stay_on_kernel_tier():
-    """Steps larger than the cell pitch break the supercell invariant, but
-    the tiled window kernel serves them anyway (it just refreshes more
-    often / escalates the window) — coarse GridMedium runs stay kernel-tier
-    and match the scan engine."""
+    """2-D grid media run on the scan tier at every step size, coarse
+    steps included, and match the scan engine."""
     from raytracing_tpu.models import get
     m = get("fisheye", medium="grid")
-    assert supports("op1", m.medium)
+    assert not supports("op1", m.medium)
     pos0, theta0 = _batch(8)
     out = fast_trace("op1", m.scenario, m.medium, delta_s=2 * np.pi / 32,
                      steps=32, pos0=pos0, theta0=theta0)
-    assert out.engine == "grid-tiled"
+    assert out.engine == "scan"
     assert out.pos.shape == (8, 2)
     ref = rt.trace("op1", m.scenario, m.medium, delta_s=2 * np.pi / 32,
                    mode="metrics", dtype=np.float32, max_size=33,
@@ -117,8 +115,7 @@ def test_fast_trace_high_precision():
 
 
 def test_fast_trace_routes_hermite_grid():
-    """HermiteGridMedium routes to the tiled window kernel at any step
-    size — coarse steps included (the old supercell/scan split is gone)."""
+    """HermiteGridMedium routes to the scan tier at any step size."""
     import numpy as np
     import raytracing_tpu as rt
     from raytracing_tpu.engine.fast import fast_trace
@@ -132,10 +129,10 @@ def test_fast_trace_routes_hermite_grid():
     theta0 = np.full(r, np.pi / 2, np.float32)
     fine = fast_trace("op6", scen, hm, delta_s=0.003, steps=100,
                       pos0=pos0, theta0=theta0, block_rays=128)
-    assert fine.engine == "grid-tiled"
+    assert fine.engine == "scan"
     coarse = fast_trace("op6", scen, hm, delta_s=0.05, steps=50,
                         pos0=pos0, theta0=theta0, block_rays=128)
-    assert coarse.engine == "grid-tiled"
+    assert coarse.engine == "scan"
     assert np.all(np.isfinite(np.asarray(fine.pos)))
     assert np.all(np.isfinite(np.asarray(coarse.pos)))
 
@@ -164,7 +161,7 @@ def test_fast_trace_custom_medium_kernel():
 
 
 def test_fast_trace_long_traces_use_segments():
-    """Trip counts beyond the Mosaic compile threshold chain bounded
+    """Trip counts beyond SEGMENT_THRESHOLD chain bounded
     segments (identical results) instead of a one-shot kernel."""
     import numpy as np
     import raytracing_tpu as rt
@@ -204,8 +201,7 @@ def test_fast_trace_long_traces_use_segments():
 
 
 def test_fast_trace_small_user_grid_falls_back():
-    """A user grid smaller than the smallest (11, 11)-cell tile window must
-    keep its supercell/scan path instead of raising (ADVICE r2 #2)."""
+    """A small user grid traces on the scan tier instead of raising."""
     from raytracing_tpu.media.spline import grid_medium_from_samples
     x = np.linspace(-1.5, 1.5, 9)
     y = np.linspace(-1.5, 1.5, 9)
@@ -217,7 +213,7 @@ def test_fast_trace_small_user_grid_falls_back():
     out = fast_trace("op1", scen, med, delta_s=0.05, steps=20,
                      pos0=pos0, theta0=theta0, block_rays=128,
                      interpret=True)
-    assert out.engine in ("grid-supercell", "scan")
+    assert out.engine == "scan"
     assert out.pos.shape == (8, 2)
 
 
@@ -245,11 +241,9 @@ def test_fast_trace_custom_medium_golden():
 
 
 def test_fast_trace_gridmedium_auto_hermite():
-    """Plain GridMedium auto-converts (cached) to the Hermite node form and
-    routes through the tiled window kernel."""
+    """Plain GridMedium traces on the scan tier as it is."""
     import numpy as np
     import raytracing_tpu as rt
-    from raytracing_tpu.engine import fast as fastmod
     from raytracing_tpu.engine.fast import fast_trace
     from raytracing_tpu.media.spline import build_grid_medium
 
@@ -260,14 +254,16 @@ def test_fast_trace_gridmedium_auto_hermite():
     theta0 = np.full(r, np.pi / 2, np.float32)
     out = fast_trace("op6", scen, gm, delta_s=0.003, steps=100,
                      pos0=pos0, theta0=theta0, block_rays=128)
-    assert out.engine == "grid-tiled"
-    h1 = fastmod._as_hermite(gm)
-    assert fastmod._as_hermite(gm) is h1  # cached
+    assert out.engine == "scan"
+    ref = rt.trace("op6", scen, gm, delta_s=0.003, mode="metrics",
+                   dtype=np.float32, max_size=101, pos0=pos0, theta0=theta0)
+    np.testing.assert_array_equal(np.asarray(out.pos),
+                                  np.asarray(ref.final.pos))
 
 
 def test_fast_trace_sharded_grid_medium():
-    """fast_trace_sharded routes 2-D grid media through the mesh-aware
-    tiled window kernel, bit-identical to the single-device path."""
+    """fast_trace_sharded runs 2-D grid media on the scan tier with the
+    rays laid out over the mesh, bit-identical to the single-device path."""
     import numpy as np
     import raytracing_tpu as rt
     from raytracing_tpu.engine.fast import fast_trace, fast_trace_sharded
@@ -282,7 +278,8 @@ def test_fast_trace_sharded_grid_medium():
     theta0 = (np.pi / 2 + np.linspace(-0.01, 0.01, r)).astype(np.float32)
     s = fast_trace_sharded("op6", scen, gm, delta_s=0.01, pos0=pos0,
                            theta0=theta0, mesh=mesh, steps=100)
-    assert s.engine == "grid-tiled-sharded"
+    assert s.engine == "scan-sharded"
+    assert len(s.pos.sharding.device_set) == 8
     single = fast_trace("op6", scen, gm, delta_s=0.01, pos0=pos0,
                         theta0=theta0, steps=100, interpret=True)
     np.testing.assert_array_equal(np.asarray(s.pos), np.asarray(single.pos))
@@ -290,7 +287,7 @@ def test_fast_trace_sharded_grid_medium():
 
 def test_fast_trace_exit_scenarios_default_skip():
     """interface/vert batches route through segmented block-skipping by
-    default (VERDICT r2 #6): the fan is sorted by launch angle on the way
+    default: the fan is sorted by launch angle on the way
     in, frozen blocks bypass the step loop, the sort is undone on the way
     out, and results are bit-identical to the plain segmented path."""
     from raytracing_tpu.engine.segmented import segmented_trace
@@ -361,31 +358,6 @@ def test_fast_trace_stats_on_profile():
     with pytest.raises(ValueError, match="stratified"):
         fast_trace("op6", scen, rt.analytic_medium("fisheye"), delta_s=ds,
                    pos0=pos0, theta0=theta0, steps=steps, stats=True)
-
-
-def test_hermite_cache_is_bounded():
-    """Serving builds a fresh GridMedium per request; the node-form cache
-    must evict (LRU) instead of retaining every medium ever converted."""
-    from raytracing_tpu.engine import fast
-    from raytracing_tpu.media.spline import grid_medium_from_samples
-
-    x = np.linspace(-1.0, 1.0, 8)
-    media = [grid_medium_from_samples(1.0 + 0.01 * k + np.add.outer(
-        0.05 * x * x, 0.05 * x * x), x, x)
-        for k in range(fast._HERMITE_CACHE_MAX + 3)]
-    first = fast._as_hermite(media[0])
-    for m in media:
-        fast._as_hermite(m)
-    assert len(fast._HERMITE_CACHE) <= fast._HERMITE_CACHE_MAX
-    # re-converting an evicted medium rebuilds rather than aliasing
-    again = fast._as_hermite(media[0])
-    assert again is not first
-    np.testing.assert_array_equal(np.asarray(again.nodes),
-                                  np.asarray(first.nodes))
-    # the most recently used entry survives an interleaved access pattern
-    fast._as_hermite(media[0])
-    fast._as_hermite(media[1])
-    assert fast._as_hermite(media[0]) is fast._as_hermite(media[0])
 
 
 def test_fast_trace_sharded_golden_matches_single():

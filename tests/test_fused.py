@@ -189,7 +189,7 @@ def test_fast_trace_routes_stratified_to_kernel():
     scen, med, pos0, theta0 = _strat_setup("interface", "interface")
     out = fast_trace("op6", scen, med, delta_s=0.01, steps=200,
                      pos0=pos0, theta0=theta0, block_rays=128)
-    # exit scenarios default to segmented block skipping (VERDICT r2 #6)
+    # exit scenarios default to segmented block skipping
     assert out.engine == "fused-strat-seg-skip"
     assert np.all(np.isfinite(np.asarray(out.pos)))
 

@@ -47,34 +47,3 @@ def test_hermite_trace_matches_gridmedium():
     b = rt.trace("op6", scen, hm, **kw)
     np.testing.assert_allclose(np.asarray(b.final.pos),
                                np.asarray(a.final.pos), atol=1e-9)
-
-
-def test_kappa_cell_bound_covers_in_cell_overshoot():
-    """kappa_max must bound |grad n|/n BETWEEN nodes, not just at them:
-    on a sharp user grid the bicubic gradient overshoots its node
-    samples inside cells, and the drift-predicted window margins
-    (engine/segmented) rely on the bound holding everywhere."""
-    import numpy as np
-
-    from raytracing_tpu.media.spline import grid_medium_from_samples
-    from raytracing_tpu.media.hermite import build_hermite_medium
-
-    # a sharp step in n -> strong gradient-spline ringing between nodes
-    x = np.linspace(-1, 1, 41)
-    y = np.linspace(-1, 1, 41)
-    X, Y = np.meshgrid(x, y)
-    Z = 1.0 + 0.5 / (1.0 + np.exp(-Y / 0.02))
-    hm = build_hermite_medium(grid_medium_from_samples(Z, x, y))
-    # dense in-cell sampling of the actual evaluator
-    xs = np.linspace(-0.9, 0.9, 301)
-    ys = np.linspace(-0.9, 0.9, 301)
-    XX, YY = np.meshgrid(xs, ys)
-    n, (gx, gy) = hm.n_and_grad(XX.ravel(), YY.ravel())
-    kappa_dense = float(np.max(np.hypot(np.asarray(gx), np.asarray(gy))
-                               / np.maximum(np.asarray(n), 1e-6)))
-    assert hm.kappa_max >= kappa_dense, (hm.kappa_max, kappa_dense)
-    # and the bound is not absurdly loose on a smooth medium
-    from raytracing_tpu.media.spline import build_grid_medium
-    sm = build_hermite_medium(build_grid_medium("fisheye",
-                                                (-1.5, 1.5, -1.5, 1.5)))
-    assert sm.kappa_max < 1.2

@@ -71,7 +71,7 @@ def test_native_builder_is_faster_on_reference_grid():
     """The point of going native: the interface-scenario grid (~1M points).
 
     Best-of-3 per backend: single timings flake when the host is loaded
-    (e.g. a TPU benchmark hammering the box in a parallel session)."""
+    (e.g. another benchmark hammering the box in a parallel session)."""
     box = (-2.0, 20.0, -2.0, 4.0)
 
     def best(backend):

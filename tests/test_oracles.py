@@ -57,7 +57,7 @@ def test_interface_snell_analytic_converges():
 def test_interface_snell_analytic_calibrated(op):
     """The ANALYTIC self-calibrated step meets the reference Snell bar.
 
-    The table was measured on-chip (benchmarks/calibrate_analytic.py, fused
+    The table was measured by benchmarks/calibrate_analytic.py (fused
     sweep); this is the independent float64 scan-engine check of the same
     acceptance criterion (RT_bench.py:896-916 thresholds) at the stored
     divisor — the analytic analogue of the sampled-medium test above.
@@ -77,7 +77,7 @@ def test_calibrated_analytic_accessor():
     assert div == 179.0 and np.isclose(ds, 2 * np.pi / 179.0)
     ds, div = calibrated.calibrated_analytic("op6", "interface")
     # 5.0, not the 4.5 mean-bar acceptance crossing: re-margined against
-    # the 0.8-deg MAX bar (benchmarks/snell_margin_probe.py, logs_r4/17)
+    # the 0.8-deg MAX bar (raytracing_tpu/calibrated.py)
     assert np.isclose(ds, config.SIGMA / 5.0)
     # interface op7's Snell error floors at ~0.49 deg on the analytic
     # sigmoid (> the 0.2 bar at every step) — stored as None

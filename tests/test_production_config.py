@@ -2,10 +2,9 @@
 
 The whole suite runs under conftest's forced ``jax_enable_x64=True`` so the
 float64 mirror can be exact — but production (bench.py, serving, fast_trace
-on TPU) runs with x64 OFF, where integer widening and weak-type promotion
-behave differently (e.g. ``astype(int64)`` silently truncates to int32 —
-the dtype class of bug behind the Morton-key regression in
-``tests/test_morton.py``).  These tests re-run the production entry points
+on the GPU) runs with x64 OFF, where integer widening and weak-type
+promotion behave differently (e.g. ``astype(int64)`` silently truncates to
+int32).  These tests re-run the production entry points
 under ``jax.enable_x64(False)`` and check them against their x64-config
 twins at f32 tolerance.  Everything here is interpret-mode CPU; compute is
 f32 in BOTH configs (the engines pin their dtypes), so results should agree
@@ -42,7 +41,8 @@ def test_fast_trace_analytic_matches_across_configs():
 
 
 def test_grid_tiled_matches_across_configs():
-    from raytracing_tpu.engine.segmented import grid_trace_tiled
+    """The 2-D grid medium's production path (the scan tier under
+    fast_trace) gives the same rays with x64 on and off."""
     from raytracing_tpu.media.hermite import build_hermite_medium
     from raytracing_tpu.media.spline import build_grid_medium
 
@@ -50,16 +50,13 @@ def test_grid_tiled_matches_across_configs():
     hm = build_hermite_medium(
         build_grid_medium("fisheye", scen.box, dtype=np.float32))
     pos0, theta0 = _fisheye_batch(1024)
-    kw = dict(steps=48, box=tuple(scen.box), block_rays=1024, interpret=True)
-    ref = grid_trace_tiled("op1", pos0, theta0, np.float32(2 * np.pi / 303),
-                           hm, **kw)
+    kw = dict(delta_s=np.float32(2 * np.pi / 303), pos0=pos0, theta0=theta0,
+              steps=48)
+    ref = fast_trace("op1", scen, hm, **kw)
     with jax.enable_x64(False):
-        got = grid_trace_tiled("op1", pos0, theta0,
-                               np.float32(2 * np.pi / 303), hm, **kw)
+        got = fast_trace("op1", scen, hm, **kw)
+    assert got.engine == ref.engine == "scan"
     assert np.all(np.isfinite(np.asarray(got.pos)))
-    # the Morton sort permutation must be config-independent: results are
-    # unsorted back to caller order, so any key misordering shows up as
-    # ray-level mismatches here
     np.testing.assert_allclose(np.asarray(got.pos), np.asarray(ref.pos),
                                atol=1e-6)
 

@@ -18,7 +18,7 @@ def _rms(div, dtype=np.float64, op="op12"):
 
 
 def test_rk4_meets_north_star_rms():
-    """BASELINE.json: RMS trajectory error <= 1e-6 vs the analytic circle."""
+    """North star: RMS trajectory error <= 1e-6 vs the analytic circle."""
     assert _rms(300) < 1e-6
 
 

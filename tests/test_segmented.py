@@ -1,4 +1,4 @@
-"""Segmented (bounded-compile) tracing == one-shot kernels; compaction."""
+"""Segmented (resumable-kernel) tracing == one-shot kernels; compaction."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,84 +86,9 @@ def test_compaction_preserves_results():
                                   np.asarray(plain.active))
 
 
-def test_grid_trace_supercell_matches_scan():
-    """The supercell Hermite kernel == the scan engine on the same 2-D
-    sampled-spline medium (fisheye, the reference's production pipeline)."""
-    from raytracing_tpu.engine.segmented import grid_trace
-    from raytracing_tpu.media.hermite import build_hermite_medium
-    from raytracing_tpu.media.spline import build_grid_medium
-    scen = rt.scenario("fisheye")
-    gm = build_grid_medium("fisheye", scen.box, dtype=np.float32)
-    hm = build_hermite_medium(gm, dtype=np.float32)
-    r = 128
-    theta0 = np.linspace(0.3, np.pi / 2, r).astype(np.float32)
-    pos0 = np.tile(np.array([[0.4, 0.1]], np.float32), (r, 1))
-    # fine-step regime: the supercell invariant needs delta_s < cell pitch
-    ds, steps = 0.003, 300
-    res = grid_trace("op6", pos0, theta0, np.float32(ds), hm, steps=steps,
-                     box=tuple(scen.box), block_rays=128, interpret=True)
-    ref = rt.trace("op6", scen, gm, delta_s=ds, mode="metrics",
-                   dtype=np.float32, max_size=steps + 1,
-                   pos0=pos0, theta0=theta0)
-    np.testing.assert_allclose(np.asarray(res.pos), np.asarray(ref.final.pos),
-                               atol=3e-4)
-    np.testing.assert_allclose(np.asarray(res.traveltime),
-                               np.asarray(ref.final.traveltime), atol=3e-4)
-
-
-def test_grid_trace_supercell_interface_exits():
-    """2-D interface medium through the supercell kernel, with box exits."""
-    from raytracing_tpu.engine.segmented import grid_trace
-    from raytracing_tpu.media.hermite import build_hermite_medium
-    from raytracing_tpu.media.spline import build_grid_medium
-    import dataclasses
-    scen = dataclasses.replace(rt.scenario("interface"),
-                               box=(-2.0, 2.0, -2.0, 2.0))
-    gm = build_grid_medium("interface", scen.box, dtype=np.float32)
-    hm = build_hermite_medium(gm, dtype=np.float32)
-    r = 128
-    theta0 = np.linspace(np.pi / 30, np.pi / 2, r).astype(np.float32)
-    pos0 = np.tile(np.array([[-1.9, -0.5]], np.float32), (r, 1))
-    ds, steps = 0.005, 600
-    res = grid_trace("op8", pos0, theta0, np.float32(ds), hm, steps=steps,
-                     box=tuple(scen.box), block_rays=128, interpret=True)
-    ref = rt.trace("op8", scen, gm, delta_s=ds, mode="metrics",
-                   dtype=np.float32, max_size=steps + 1,
-                   pos0=pos0, theta0=theta0)
-    np.testing.assert_allclose(np.asarray(res.pos), np.asarray(ref.final.pos),
-                               atol=1e-3)
-    np.testing.assert_array_equal(np.asarray(res.active),
-                                  np.asarray(ref.exit_step) == steps)
-
-
-def test_grid_trace_op7_and_stats():
-    """op7 (window in segment state) + Welford stats through the 2-D
-    supercell kernel == scan engine on the same medium."""
-    from raytracing_tpu.engine.segmented import grid_trace
-    from raytracing_tpu.media.hermite import build_hermite_medium
-    from raytracing_tpu.media.spline import build_grid_medium
-    scen = rt.scenario("vert")
-    gm = build_grid_medium("vert_heterogeneous", scen.box, dtype=np.float32)
-    hm = build_hermite_medium(gm, dtype=np.float32)
-    r = 128
-    theta0 = np.linspace(0.2, np.pi / 2 - 0.05, r).astype(np.float32)
-    pos0 = np.tile(scen.pos0[:1].astype(np.float32), (r, 1))
-    ds, steps = 0.004, 200
-    res = grid_trace("op7", pos0, theta0, np.float32(ds), hm, steps=steps,
-                     box=tuple(scen.box), block_rays=128, interpret=True,
-                     with_stats=True)
-    ref = rt.trace("op7", scen, gm, delta_s=ds, mode="metrics",
-                   dtype=np.float32, max_size=steps + 1,
-                   pos0=pos0, theta0=theta0)
-    np.testing.assert_allclose(np.asarray(res.pos), np.asarray(ref.final.pos),
-                               atol=5e-3)  # op7's fd3 combo amplifies f32 noise
-    np.testing.assert_array_equal(np.asarray(res.mom_count),
-                                  np.asarray(ref.final.mom_count))
-
-
 def test_skip_frozen_bit_identical():
-    """Per-block liveness skipping (pl.when bypass of all-frozen blocks)
-    changes nothing but the wasted work: results are bit-identical to the
+    """Per-program liveness skipping (pl.when bypass of all-frozen
+    programs) changes nothing but the wasted work: results are bit-identical to the
     plain segmented run, on an exit-ordered interface fan where most
     blocks freeze early (RT_bench.py:878-879's loop break, device-side)."""
     scen = rt.scenario("interface")

@@ -114,13 +114,13 @@ def test_trace_stratified_medium(server):
 
 def test_trace_grid_medium(server):
     """medium=grid serves the reference's 2-D sampled-spline pipeline
-    through the tiled window kernel."""
+    through the scan tier."""
     code, body = _post(server + "/v1/trace",
                        {"scenario": "fisheye", "op": "op6", "rays": 128,
                         "medium": "grid", "divisor": 100, "n_turns": 1})
     assert code == 200, body
     assert body["medium"] == "grid"
-    assert body["engine"] in ("grid-tiled", "grid-supercell", "scan")
+    assert body["engine"] == "scan"
 
 
 def test_trace_c1_media(server):
@@ -130,12 +130,12 @@ def test_trace_c1_media(server):
                         "medium": "c1", "divisor": 100, "n_turns": 1})
     assert code == 200, body
     assert body["medium"] == "c1"
-    assert body["engine"] in ("grid-tiled", "scan")
+    assert body["engine"] == "scan"
     code, body = _post(server + "/v1/trace",
                        {"scenario": "vert", "op": "op8", "rays": 128,
                         "medium": "c1-stratified"})
     assert code == 200, body
-    assert body["engine"] in ("fused-strat-seg-skip", "scan")
+    assert body["engine"] == "fused-strat-seg-skip"
     code, body = _post(server + "/v1/trace",
                        {"scenario": "fisheye", "medium": "c1-stratified"})
     assert code == 400 and "x-independent" in body["error"]

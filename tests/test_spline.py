@@ -235,7 +235,7 @@ def test_compact_stratified_equivalent():
 
 
 def test_compact_stratified_kernel_route():
-    """fast_trace on the full table == on the trimmed one (auto-applied)."""
+    """fast_trace on the full interface table == the scan tier."""
     from raytracing_tpu.engine.fast import fast_trace
     from raytracing_tpu.media.spline import build_stratified_medium
     scen = rt.scenario("interface")
@@ -273,7 +273,7 @@ def test_compact_stratified_range_trim_vert():
     # f32 query quantization only (the compact fy is the more accurate)
     np.testing.assert_allclose(np.asarray(nc), np.asarray(nf), atol=2e-6)
     np.testing.assert_allclose(np.asarray(gc), np.asarray(gf), atol=2e-6)
-    # end-to-end through the kernels (fast_trace applies the trim itself)
+    # end-to-end through the kernels on the full table
     r = 128
     theta0 = np.linspace(0.2, 1.3, r).astype(np.float32)
     pos0 = np.tile(scen.pos0[:1].astype(np.float32), (r, 1))
@@ -319,8 +319,9 @@ def test_grid_medium_from_samples_matches_builder():
 
 def test_user_samples_trace_at_kernel_tier():
     """A user-measured index grid (Gaussian lens — a field the reference
-    cannot express without source edits) traces through the tiled kernel
-    and matches the scan engine on the same medium."""
+    cannot express without source edits) traces through fast_trace, which
+    routes 2-D grid media to the scan tier, and matches the scan engine on
+    the same medium."""
     import raytracing_tpu as rt
     from raytracing_tpu.engine.fast import fast_trace
     from raytracing_tpu.media.spline import grid_medium_from_samples
@@ -340,37 +341,12 @@ def test_user_samples_trace_at_kernel_tier():
     theta0 = np.linspace(0.1, 0.2, r).astype(np.float32)
     out = fast_trace("op6", scen, gm, delta_s=0.01, steps=300,
                      pos0=pos0, theta0=theta0, interpret=True)
-    assert out.engine == "grid-tiled"
+    assert out.engine == "scan"
     ref = rt.trace("op6", scen, gm, delta_s=0.01, mode="metrics",
                    dtype=np.float32, max_size=301, pos0=pos0,
                    theta0=theta0)
     np.testing.assert_allclose(np.asarray(out.pos),
                                np.asarray(ref.final.pos), atol=5e-4)
-
-
-def test_hermite_kappa_statics_pointwise():
-    """kappa_max is the pointwise max |grad n|/n — NOT g_max/n_min, whose
-    extremes come from different table regions (the +-3 reference padding
-    put fisheye's n_min in corners no ray visits and inflated the factored
-    bound 27x, mis-sizing every coarse-divisor window; ARCHITECTURE #6)."""
-    import raytracing_tpu as rt
-    from raytracing_tpu.media.hermite import build_hermite_medium
-    from raytracing_tpu.media.spline import build_grid_medium
-
-    scen = rt.scenario("fisheye")
-    hm = build_hermite_medium(build_grid_medium("fisheye", scen.box,
-                                                dtype=np.float32))
-    nodes = np.asarray(hm.nodes, np.float64).reshape(hm.ny, hm.nx, 9)
-    g = np.sqrt(nodes[..., 1] ** 2 + nodes[..., 5] ** 2)
-    node_max = (g / np.maximum(nodes[..., 0], 1e-6)).max()
-    # kappa_max is the rigorous per-CELL bound (media/hermite.
-    # kappa_cell_bound): at least the node max (it must hold between
-    # nodes too), and within a few % of it on this smooth field
-    assert node_max <= hm.kappa_max <= 1.1 * node_max
-    # the pointwise bound is ~1 on the Maxwell fisheye (max of 2r/(1+r^2));
-    # the factored form exceeds 20 — the regression this guards against
-    assert hm.kappa_max < 2.0
-    assert hm.g_max / hm.n_min > 20.0
 
 
 def test_medium_from_samples_shared_dispatch():
